@@ -13,12 +13,15 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
+from trx2dy_torch.cli import fold as fold_cli
 from trx2dy_torch.device import resolve_device
 from trx2dy_torch.dynamics.driver import geometry_stage
 from trx2dy_torch.models.predictor2d_infer import pred_2d_geometry
+from trx2dy_torch.physics.folder import fold_ensemble
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "trx2dy_torch").rglob("*.py")) \
@@ -48,6 +51,18 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         geometry_stage("tgt", None, str(tmp_path))
     assert not (tmp_path / "tgt").exists()
+
+
+def test_fold_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    npz = {"dist": np.full((4, 4, 37), 1.0 / 37, np.float32)}
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fold_ensemble(npz, "AAAA", None, fastrelax=False, use_orient=False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fold_cli.main(["-NPZ", str(tmp_path / "missing.npz"), "-FASTA",
+                       str(tmp_path / "missing.fasta"), "-OUT",
+                       str(tmp_path / "d.pdb"), "--no-fastrelax"])
+    assert not (tmp_path / "d.pdb").exists()
 
 
 def test_resolve_device_turns_tf32_off(monkeypatch):
