@@ -13,11 +13,12 @@ Phases; any failure exits non-zero and no phase is skipped:
   3. each kernel against its plain PyTorch version on the card, at the
      shapes the main path gives it, within the stated tolerance of a
      float64 computation; kernel, plain and library times beside the bound
-     the card's data sheet gives. Triangle attention row- and column-wise;
-     the spline restraint energy's dense entry at (B, L) = (50, 150) and
-     (3, 37) and its pair entry at the bucketed pair count of a full L=150
-     mask with B=50, for all four knot grids, with queries below, on and
-     above the knots;
+     the card's data sheet gives. Triangle attention row- and column-wise
+     (held to TRI_ATTN_TOL, with the bias as the trunk lays it out and as
+     an (L, L, H) array); the spline restraint energy's dense entry at
+     (B, L) = (50, 150) and (3, 37) and its fused pair entry, all four knot
+     grids in one launch, at the bucketed pair counts of a full L=150 mask
+     with B=50, with queries below, on and above the knots;
   4. the main path, first half: the geometry stage (a3m -> features ->
      Predictor2D at full width, depth 12, random seeded weights ->
      pred_npz for both models) answers three requests at L = 64, 256, 400
@@ -29,7 +30,7 @@ Phases; any failure exits non-zero and no phase is skipped:
      relax, orientation restraints on) through fold_ensemble, and (b) the
      L=64 NMR pred_npz of phase 4 into 8 decoys through the fold CLI, whose
      PDBs are read back. Energies must be finite and below each decoy's
-     start; the spline pair kernel must launch 4 times per energy
+     start; the spline pair kernel must launch once per energy
      evaluation; (a)'s final decoys are rescored through the dense entry
      (batched_energy_fused) and must match. Request (b) is held to the
      plain spline path on the card: first energy and gradient within 1e-4,
@@ -64,7 +65,9 @@ KERNEL_LENGTHS = (37, 256, 400)
 REQUEST_LENGTHS = (64, 256, 400)
 MSA_ROWS = 1000
 DEPTH = 12
-KERNEL_TOL = 5e-3          # against float64, as tests/test_pallas_ops.py
+# triangle attention against float64: the kernel keeps float32 accuracy
+# (3xTF32); single-pass TF32 would be ~1e-3 off and must fail here
+TRI_ATTN_TOL = 1e-5
 PLAIN_PATH_TOL = 1e-3      # probabilities, kernel path vs plain path
 HEADS, HEAD_DIM = 4, 32
 
@@ -84,12 +87,13 @@ FOLD_MEDIAN_TOL = 0.10
 RESCORE_TOL = 1e-4         # dense-entry rescoring vs the fold's energies
 PROFILE_ITERS = 250        # one STAGE_CHUNK
 
-# Data-sheet peaks: float32 outside the tensor cores, and memory rate.
+# Data-sheet peaks: float32 outside the tensor cores, memory rate, dense
+# TF32 on the tensor cores.
 DATASHEETS = {
-    "H100 PCIe": (51e12, 2.0e12),
-    "H100 NVL": (60e12, 3.9e12),
-    "H200": (67e12, 4.8e12),
-    "H100 SXM": (67e12, 3.35e12),
+    "H100 PCIe": (51e12, 2.0e12, 378e12),
+    "H100 NVL": (60e12, 3.9e12, 417e12),
+    "H200": (67e12, 4.8e12, 495e12),
+    "H100 SXM": (67e12, 3.35e12, 495e12),
 }
 
 
@@ -153,12 +157,13 @@ def kernel_device_ms(fn, kernel: str, iters: int = 20):
 
 def tri_attn_inputs(L: int, dev, seed: int):
     """q, k, v as the trunk makes them (views into one (L, L, 384) qkv
-    projection), and the (L, L, H) bias."""
+    projection), and the (L, L, H) bias as the trunk makes it: a view of a
+    head-major (H, L, L) array."""
     gen = torch.Generator().manual_seed(seed)
     qkv = torch.randn(L, L, 3 * HEADS * HEAD_DIM, generator=gen).to(dev)
     q, k, v = (t.reshape(L, L, HEADS, HEAD_DIM)
                for t in torch.chunk(qkv, 3, dim=-1))
-    bias = torch.randn(L, L, HEADS, generator=gen).to(dev)
+    bias = torch.randn(HEADS, L, L, generator=gen).to(dev).permute(1, 2, 0)
     return q, k, v, bias
 
 
@@ -174,13 +179,18 @@ def sdpa_tri_attn(q, k, v, bias, wise):
     return out.transpose(0, 1) if wise == "col" else out
 
 
-def tri_attn_bound_ms(L: int, peaks) -> tuple[float, str]:
+def tri_attn_bound_ms(L: int, peaks) -> tuple[float, str, float]:
+    """(bound, what bounds it, the 3xTF32 bound): the function's float32
+    operations at the f32 rate, or its bytes, whichever takes longer; and
+    the three TF32 products per product the kernel runs, at the dense TF32
+    rate."""
     flops = 4.0 * L ** 3 * HEADS * HEAD_DIM          # q.k and p.v products
     nbytes = 4.0 * (4 * L * L * HEADS * HEAD_DIM     # q, k, v in; out
                     + L * L * HEADS)                 # bias
     t_ops, t_bytes = flops / peaks[0], nbytes / peaks[1]
+    t_tf32 = max(3.0 * flops / peaks[2], t_bytes)
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes \
-        else "bytes"
+        else "bytes", 1e3 * t_tf32
 
 
 def kernel_phase(dev, peaks, lengths=KERNEL_LENGTHS):
@@ -189,19 +199,23 @@ def kernel_phase(dev, peaks, lengths=KERNEL_LENGTHS):
     rows = []
     for L in lengths:
         q, k, v, bias = tri_attn_inputs(L, dev, seed=L)
+        bias_ijh = bias.contiguous()                 # (L, L, H) layout
         for wise in ("row", "col"):
             before = tri_attn_core.launches
             out = tri_attn_core(q, k, v, bias, wise)
+            out_ijh = tri_attn_core(q, k, v, bias_ijh, wise)
             torch.cuda.synchronize()
-            check(tri_attn_core.launches == before + 1,
+            check(tri_attn_core.launches == before + 2,
                   f"tri_attn L={L} {wise}: launch counter did not advance")
             ref = tri_attn_core_plain(q.double(), k.double(), v.double(),
                                       bias.double(), wise)
             check(bool(torch.isfinite(out).all()),
                   f"tri_attn L={L} {wise}: non-finite output")
-            err = (out.double() - ref).abs().max().item()
-            check(err <= KERNEL_TOL,
-                  f"tri_attn L={L} {wise}: max abs err {err} > {KERNEL_TOL}")
+            err = max((o.double() - ref).abs().max().item()
+                      for o in (out, out_ijh))
+            check(err <= TRI_ATTN_TOL,
+                  f"tri_attn L={L} {wise}: max abs err {err} > "
+                  f"{TRI_ATTN_TOL}")
             lib_err = (sdpa_tri_attn(q, k, v, bias, wise).double() - ref) \
                 .abs().max().item()
             del ref
@@ -209,13 +223,16 @@ def kernel_phase(dev, peaks, lengths=KERNEL_LENGTHS):
                 "L": L, "wise": wise, "max_abs_err": err,
                 "kernel_ms": time_ms(
                     lambda: tri_attn_core(q, k, v, bias, wise)),
+                "kernel_ms_ijh_bias": time_ms(
+                    lambda: tri_attn_core(q, k, v, bias_ijh, wise)),
                 "plain_ms": time_ms(
                     lambda: tri_attn_core_plain(q, k, v, bias, wise)),
                 "library_ms": time_ms(
                     lambda: sdpa_tri_attn(q, k, v, bias, wise)),
                 "library_err": lib_err,
             }
-            row["bound_ms"], row["bound_by"] = tri_attn_bound_ms(L, peaks)
+            row["bound_ms"], row["bound_by"], row["bound_ms_3xtf32"] = \
+                tri_attn_bound_ms(L, peaks)
             print("tri_attn " + json.dumps(row), flush=True)
             rows.append(row)
     return rows
@@ -265,8 +282,9 @@ def spline_bound_ms(n_active: int, B: int, K: int, n_mask: int,
 def spline_times(wrapper, plain, kernel: str) -> dict:
     """kernel_ms: the kernel's own device time (torch.profiler); wrapper_ms:
     one wrapper call back to back on the stream (CUDA events), which is
-    what the fold pays per call (checks, allocation, launch, the partial
-    sum); plain_ms: the plain version, the same way."""
+    what the fold pays per call (checks, allocation, launch, and for the
+    dense entry the partial sum); plain_ms: the plain version, the same
+    way."""
     wrapper_ms = time_ms(wrapper)
     kernel_ms = kernel_device_ms(wrapper, kernel)
     return {"kernel_ms": wrapper_ms if kernel_ms is None else kernel_ms,
@@ -279,8 +297,8 @@ def spline_kernel_phase(dev, peaks):
     """Both entries of the spline kernel against a float64 plain version,
     on tables fitted by the port's compile_restraints."""
     from trx2dy_torch.ops.spline_energy import (
-        _dense_fwd, _pairs_fwd, spline_dense_plain, spline_energy_dense,
-        spline_energy_pairs, spline_pairs_plain,
+        SplinePairs, _dense_fwd, _pairs_fwd, spline_dense_plain,
+        spline_energy_dense, spline_energy_pairs, spline_pairs_plain,
     )
     from trx2dy_torch.physics.compact import _compact_term
     from trx2dy_torch.physics.restraints import compile_restraints, \
@@ -338,40 +356,60 @@ def spline_kernel_phase(dev, peaks):
             print("spline " + json.dumps(row), flush=True)
             rows.append(row)
 
-    # pair entry: the bucketed pair list of a full L=150 mask, B=50
+    # fused pair entry: the bucketed pair lists of a full L=150 mask, B=50,
+    # all four grids in one launch, as one energy evaluation of the fold
     B, L = SPLINE_SHAPES[0]
     rst = compile_restraints(random_histograms(L, seed=L))
     idx = np.arange(L)
     full = {"dist": idx[:, None] < idx, "omega": idx[:, None] < idx,
             "theta": idx[:, None] != idx, "phi": idx[:, None] != idx}
+    terms, qs, active = [], [], []
     for grid in GRIDS:
         ct = _compact_term(getattr(rst, grid), full[grid])
         P, K = ct.y.shape
-        y, m, x = on(ct.y), on(ct.m), on(ct.x)
-        act = on(ct.act)
-        q = on(edge_queries(ct.x, (P, B), seed=K + P, pair_major=True))
-        before = spline_energy_pairs.launches
-        sums, deriv = _pairs_fwd(y, m, x, q, act)
-        torch.cuda.synchronize()
-        check(spline_energy_pairs.launches == before + 1,
-              f"spline pairs {grid}: launch counter did not advance")
-        ref_sums, ref_deriv = spline_pairs_plain(
-            y.double(), m.double(), x.double(), q.double(), act)
-        val, _ = _eval_with_deriv_pb(y.double(), m.double(), x.double(),
-                                     q.double())
+        terms.append((on(ct.y), on(ct.m), on(ct.x), on(ct.act)))
+        qs.append(on(edge_queries(ct.x, (P, B), seed=K + P, pair_major=True)))
+        active.append(int(ct.act.sum()))
+    tables = SplinePairs(terms)
+    before = spline_energy_pairs.launches
+    sums, derivs = _pairs_fwd(tables, qs)
+    torch.cuda.synchronize()
+    check(spline_energy_pairs.launches == before + 1,
+          "spline pairs: launch counter did not advance")
+    terms64 = [(y.double(), m.double(), x.double(), act)
+               for y, m, x, act in terms]
+    ref_sums, ref_derivs = spline_pairs_plain(terms64,
+                                              [q.double() for q in qs])
+    row = {"entry": "pairs", "grids": list(GRIDS), "B": B,
+           "P": [t[0].shape[0] for t in terms],
+           "K": [t[2].shape[0] for t in terms], "active": active,
+           "sum_rel_err": [], "deriv_err": [], "max_abs_err": 0.0}
+    for n, grid in enumerate(GRIDS):
+        y, m, x, act = terms64[n]
+        val, _ = _eval_with_deriv_pb(y, m, x, qs[n].double())
         abs_sums = torch.where(act[:, None], val.abs(), 0.0).sum(dim=0)
-        errs = compare(f"spline pairs {grid} P={P} B={B}", sums, deriv,
-                       ref_sums, ref_deriv, abs_sums)
-        row = {"entry": "pairs", "grid": grid, "B": B, "P": P, "K": K,
-               "active": int(ct.act.sum()), "sum_rel_err": errs[0],
-               "deriv_err": errs[1], "max_abs_err": errs[2]}
-        row.update(spline_times(lambda: _pairs_fwd(y, m, x, q, act),
-                                lambda: spline_pairs_plain(y, m, x, q, act),
-                                "spline_pairs_kernel"))
-        row["bound_ms"], row["bound_by"] = spline_bound_ms(
-            int(ct.act.sum()), B, K, P, P * B, peaks)
-        print("spline " + json.dumps(row), flush=True)
-        rows.append(row)
+        errs = compare(f"spline pairs {grid} P={row['P'][n]} B={B}",
+                       sums[n], derivs[n], ref_sums[n], ref_derivs[n],
+                       abs_sums)
+        row["sum_rel_err"].append(errs[0])
+        row["deriv_err"].append(errs[1])
+        row["max_abs_err"] = max(row["max_abs_err"], errs[2])
+    # bit-identical on a repeat: the in-kernel sum has a fixed order
+    sums2, derivs2 = _pairs_fwd(tables, qs)
+    check(torch.equal(sums, sums2) and all(
+        torch.equal(a, b) for a, b in zip(derivs, derivs2)),
+        "spline pairs: a repeated launch is not bit-identical")
+    row.update(spline_times(lambda: _pairs_fwd(tables, qs),
+                            lambda: spline_pairs_plain(terms, qs),
+                            "spline_pairs_kernel"))
+    bounds = [spline_bound_ms(n_act, B, t[2].shape[0], t[0].shape[0],
+                              t[0].shape[0] * B, peaks)
+              for n_act, t in zip(active, terms)]
+    row["bound_ms"] = sum(b for b, _ in bounds)
+    row["bound_by"] = "bytes" if all(by == "bytes" for _, by in bounds) \
+        else "operations"
+    print("spline " + json.dumps(row), flush=True)
+    rows.append(row)
     return rows
 
 
@@ -571,8 +609,12 @@ def plain_splines():
     """The fold's restraint splines on their plain PyTorch version."""
     import trx2dy_torch.physics.compact as compact
     from trx2dy_torch.physics.spline import masked_spline_energy_pb
+
+    def plain(tables, qs):
+        return torch.stack([masked_spline_energy_pb(y, m, x, q, act)
+                            for (y, m, x, act), q in zip(tables.terms, qs)])
     kernel = compact.spline_energy_pairs
-    compact.spline_energy_pairs = masked_spline_energy_pb
+    compact.spline_energy_pairs = plain
     try:
         yield
     finally:
@@ -603,9 +645,9 @@ def run_fold_request(label: str, L: int, B: int, fn, dev):
            "spline_dense_launches": spline_energy_dense.launches}
     print("fold " + json.dumps(req), flush=True)
     check(STATS.evals > 0 and
-          spline_energy_pairs.launches == 4 * STATS.evals,
+          spline_energy_pairs.launches == STATS.evals,
           f"fold {label}: {spline_energy_pairs.launches} spline launches "
-          f"for {STATS.evals} energy evaluations, expected 4 per evaluation")
+          f"for {STATS.evals} energy evaluations, expected 1 per evaluation")
     return out, req
 
 
@@ -757,6 +799,76 @@ def fold_phase(dev, work: Path, npz_b: str, seq_b: str):
     return [req_a, req_b], prof
 
 
+def kernel_summary(kernel_rows, spline_rows, launches: int, folds) -> list:
+    """The `kernels` line: every kernel with its launches on the main path,
+    its error, its times and its bound."""
+    at_max = [r for r in kernel_rows if r["L"] == max(KERNEL_LENGTHS)]
+    mean = lambda key: sum(r[key] for r in at_max) / len(at_max)
+    kernels = [{
+        "name": "tri_attn_fwd",
+        "route": "cuda",
+        "source": "trx2dy_torch/csrc/triangle_attention.cu",
+        "replaces": "trx2dy/ops/triangle_attention.py:38",
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in kernel_rows),
+        "ms": mean("kernel_ms"),
+        "kernel_ms": mean("kernel_ms"),
+        "wrapper_ms": mean("kernel_ms"),
+        "kernel_ms_ijh_bias": mean("kernel_ms_ijh_bias"),
+        "plain_ms": mean("plain_ms"),
+        "bound_ms": at_max[0]["bound_ms"],
+        "bound_by": at_max[0]["bound_by"],
+        "bound_ms_3xtf32": at_max[0]["bound_ms_3xtf32"],
+        "library_ms": mean("library_ms"),
+        "shape": f"L={max(KERNEL_LENGTHS)}, H={HEADS}, D={HEAD_DIM}, f32; "
+                 "times are the mean of the row- and column-wise calls, "
+                 "taken through the wrapper by CUDA events (one launch of "
+                 "milliseconds, so kernel and wrapper time are one), "
+                 "with the trunk's head-major bias (kernel_ms_ijh_bias: an "
+                 "(L, L, H) bias); bound_ms counts f32 operations at the "
+                 "f32 rate, bound_ms_3xtf32 the kernel's 3 TF32 products",
+    }]
+    B, L = SPLINE_SHAPES[0]
+    dense = [r for r in spline_rows if r["entry"] == "dense"]
+    main_dense = [r for r in dense if r["B"] == B and r["L"] == L]
+    total = lambda k: sum(r[k] for r in main_dense)
+    pairs = next(r for r in spline_rows if r["entry"] == "pairs")
+    common = {"route": "cuda", "source": "trx2dy_torch/csrc/spline_energy.cu",
+              "replaces": "trx2dy/ops/spline_energy.py:27",
+              "library_ms": None,
+              "library": "none: no single PyTorch call evaluates a masked "
+                         "natural-cubic spline with its derivative"}
+    kernels.append({
+        "name": "spline_energy_dense", **common,
+        "launches": sum(f["spline_dense_launches"] for f in folds),
+        "max_abs_err": max(r["max_abs_err"] for r in dense),
+        "ms": total("kernel_ms"),
+        "kernel_ms": total("kernel_ms"),
+        "wrapper_ms": total("wrapper_ms"),
+        "plain_ms": total("plain_ms"),
+        "bound_ms": total("bound_ms"),
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes"
+                                   for r in main_dense) else "operations",
+        "shape": f"B={B}, L={L}, f32; times and bound are the sum of one "
+                 "call per knot grid (dist, omega, theta, phi)",
+    })
+    kernels.append({
+        "name": "spline_energy_pairs", **common,
+        "launches": sum(f["spline_pair_launches"] for f in folds),
+        "max_abs_err": pairs["max_abs_err"],
+        "ms": pairs["kernel_ms"],
+        "kernel_ms": pairs["kernel_ms"],
+        "wrapper_ms": pairs["wrapper_ms"],
+        "plain_ms": pairs["plain_ms"],
+        "bound_ms": pairs["bound_ms"],
+        "bound_by": pairs["bound_by"],
+        "shape": f"B={B}, P=" + "/".join(str(P) for P in pairs["P"])
+                 + ", f32; one launch for the four knot grids (dist, omega, "
+                   "theta, phi: one energy evaluation)",
+    })
+    return kernels
+
+
 # --------------------------------------------------------------------------
 
 def main() -> int:
@@ -811,54 +923,7 @@ def main() -> int:
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
-    at_max = [r for r in kernel_rows if r["L"] == max(KERNEL_LENGTHS)]
-    mean = lambda key: sum(r[key] for r in at_max) / len(at_max)
-    kernels = [{
-        "name": "tri_attn_fwd",
-        "route": "cuda",
-        "source": "trx2dy_torch/csrc/triangle_attention.cu",
-        "replaces": "trx2dy/ops/triangle_attention.py:38",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in kernel_rows),
-        "ms": mean("kernel_ms"),
-        "kernel_ms": mean("kernel_ms"),
-        "plain_ms": mean("plain_ms"),
-        "bound_ms": at_max[0]["bound_ms"],
-        "bound_by": at_max[0]["bound_by"],
-        "library_ms": mean("library_ms"),
-        "shape": f"L={max(KERNEL_LENGTHS)}, H={HEADS}, D={HEAD_DIM}, f32; "
-                 "times are the mean of the row- and column-wise calls",
-    }]
-    B, L = SPLINE_SHAPES[0]
-    for entry, key in (("dense", "spline_dense_launches"),
-                       ("pairs", "spline_pair_launches")):
-        rows = [r for r in spline_rows if r["entry"] == entry]
-        main_rows = [r for r in rows if r["B"] == B
-                     and r.get("L", L) == L]
-        total = lambda k: sum(r[k] for r in main_rows)
-        kernels.append({
-            "name": f"spline_energy_{entry}",
-            "route": "cuda",
-            "source": "trx2dy_torch/csrc/spline_energy.cu",
-            "replaces": "trx2dy/ops/spline_energy.py:27",
-            "launches": sum(f[key] for f in folds),
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": total("kernel_ms"),
-            "kernel_ms": total("kernel_ms"),
-            "wrapper_ms": total("wrapper_ms"),
-            "plain_ms": total("plain_ms"),
-            "bound_ms": total("bound_ms"),
-            "bound_by": "bytes" if all(r["bound_by"] == "bytes"
-                                       for r in main_rows) else "operations",
-            "library_ms": None,
-            "library": "none: no single PyTorch call evaluates a masked "
-                       "natural-cubic spline with its derivative",
-            "shape": (f"B={B}, L={L}" if entry == "dense" else
-                      f"B={B}, P=" + "/".join(str(r["P"]) for r in main_rows))
-                     + ", f32; times and bound are the sum of one call per "
-                       "knot grid (dist, omega, theta, phi: one energy "
-                       "evaluation)",
-        })
+    kernels = kernel_summary(kernel_rows, spline_rows, launches, folds)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

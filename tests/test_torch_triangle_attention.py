@@ -105,6 +105,48 @@ def test_module_matches_pallas_and_logits(depth1_params, wise):
     assert np.abs(port - pallas).max() < 1e-3
 
 
+def _tf32(x):
+    """float32 rounded to TF32 (10 mantissa bits, nearest, ties away from
+    zero): cvt.rna.tf32.f32, as the kernel computes it with integers."""
+    b = x.view(torch.int32)
+    return ((b + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _products(a, b):
+    """(3xTF32, single-pass TF32) a @ b as the kernel's mma products form
+    them: TF32 operands, exact products, accumulated here in float64 so
+    that only the split is measured."""
+    ahi, bhi = _tf32(a), _tf32(b)
+    alo, blo = _tf32(a - ahi), _tf32(b - bhi)
+    d = torch.float64
+    three = (alo.to(d) @ bhi.to(d) + ahi.to(d) @ blo.to(d)) \
+        + ahi.to(d) @ bhi.to(d)
+    return three, ahi.to(d) @ bhi.to(d)
+
+
+def test_3xtf32_split_keeps_float32_accuracy():
+    """The kernel's accuracy assumption, checked where it cannot run: on
+    trunk-shaped q.k^T (D=32, scaled as the kernel scales q) and p.v
+    (a softmax row over L keys), the 3xTF32 product is within 1e-6 of the
+    float64 product relative to sum |a_i b_i| (its bound is 3 * 2^-22),
+    while single-pass TF32 is not within 1e-4."""
+    assert torch.equal(_tf32(torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11),
+                                           1.0 + 2.0 ** -12, 3.0])),
+                       torch.tensor([1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10),
+                                     1.0, 3.0]))
+    L = 96
+    q, k, v, b = (torch.from_numpy(t) for t in _inputs(L, seed=21))
+    scale = np.float32(np.log2(np.e) / np.sqrt(D))
+    qs, kt = q[0, :, 0] * scale, k[0, :, 0].T.contiguous()   # (L, D), (D, L)
+    s = torch.softmax(qs @ kt + b[:, :, 0], dim=-1)           # (L, L)
+    for a, bb in ((qs, kt), (s, v[0, :, 0])):
+        exact = a.double() @ bb.double()
+        mag = a.double().abs() @ bb.double().abs()
+        three, one = _products(a.contiguous(), bb.contiguous())
+        assert ((three - exact).abs() / mag).max() <= 1e-6
+        assert ((one - exact).abs() / mag).max() > 1e-4
+
+
 def test_wrapper_counts_no_launch_on_cpu():
     q, k, v, b = (torch.from_numpy(t) for t in _inputs(8, seed=5))
     before = tri_attn_core.launches

@@ -9,30 +9,68 @@
 // the same pass the per-decoy masked sum of values and dE/dq (zero where
 // masked), so the backward pass is one multiply.
 //
-// Two entry points share the device function spline_at:
-//   dense  y, m (L*L, K), q (B, L*L), mask (L*L)  -> the TPU kernel's layout;
-//   pairs  y, m (P, K),   q (P, B),   act (P)     -> the compacted pair lists
-//          the production fold evaluates (trx2dy/physics/spline.py:
-//          _eval_with_deriv_pb via compact.compact_restraint_energy_batch).
+// Two entry points:
+//   dense  y, m (L*L, K), q (B, L*L), mask (L*L)  -> the TPU kernel's layout,
+//          one term per launch; the caller sums the (B, n_blocks) partials.
+//   pairs  up to four terms at once, each y, m (P_t, K_t), x (K_t),
+//          q (P_t, B), act (P_t): the compacted pair lists the production
+//          fold evaluates (trx2dy/physics/spline.py:_eval_with_deriv_pb via
+//          compact.compact_restraint_energy_batch). One launch per energy
+//          evaluation writes every term's deriv and the (n_terms, B) sums.
 //
 // What bounds it on an H100: per query it reads q and 4 table values and
 // writes one derivative, with ~40 flops, far below the 67 TFLOP/s f32 rate,
-// so it is bound by bytes. At the fold's sizes (L=150, B=50) one call moves
-// at most ~15 MB, about 5 us at 3.35 TB/s, so in practice each launch is
-// set by launch latency. The design therefore keeps each call to one
-// launch with no atomics and no second pass in the kernel: knots go to
-// shared memory once per block; each thread finds its interval directly by
-// binary search over at most 64 knots (not the TPU kernel's masked scan
-// over all K-1 intervals) and reads the four table values from the
-// K-contiguous row; in the pair entry the 32 decoys of a warp share one
-// pair's row, so those reads are broadcasts. A masked element is never
-// evaluated and gives 0 and 0, so an inf or NaN there never leaks (the
-// plain version selects, with the same result). The per-decoy sum is
-// deterministic: each block reduces in a fixed order and writes one partial
-// per decoy into a (B, n_blocks) buffer that the caller sums.
+// so it is bound by bytes: one evaluation of the fold at L=150, B=50 moves
+// ~44 MB (q, deriv, the table rows), about 13 us at 3.35 TB/s.
+//
+// Dense design: knots go to shared memory once per block; each thread finds
+// its interval by binary search over at most 64 knots (not the TPU kernel's
+// masked scan over all K-1 intervals) and reads the four table values from
+// the K-contiguous row; each block writes one fixed-order partial per decoy.
+//
+// Pair design, for launch count and latency rather than bytes:
+//  - one launch for all terms: the x-blocks are split among the terms in
+//    order, each block walks `nit` tiles of PAIR_ELEMS x R consecutive
+//    pairs of one term, with nit chosen on the host so that the grid is
+//    about one wave of resident blocks (each block pays its prologue and
+//    its end-of-block fence and atomic once);
+//  - a block is R rows of W = min(B, PAIR_THREADS) decoy lanes, so a thread
+//    keeps one decoy, consecutive threads read consecutive q elements and no
+//    lane idles except the PAIR_THREADS mod W remainder;
+//  - a thread starts the loads of all its PAIR_ELEMS elements before it uses
+//    any; the interval search is branch-free over the knots padded to 64
+//    with +inf in shared memory (6 steps), and queries outside the knots
+//    read the first or last interval, so every element makes the same four
+//    table loads with no divergent branch;
+//  - each interval's 1/h, h/6 and h*h/6 are computed once per block into
+//    shared memory, so an element does no division (1/h times a value is
+//    within an ulp or two of the plain version's division);
+//  - offsets are 32-bit: the entry refuses terms with P*B or P*K >= 2^31;
+//  - the per-decoy sum is finished in the kernel, deterministically, in two
+//    levels so that no block sums more than a few values per decoy: each
+//    block writes its fixed-order partials; the last block of each group of
+//    GROUP blocks (a __threadfence and an atomicAdd on the group's counter,
+//    which it resets) sums the group's partials in block order; the last
+//    group to finish sums every term's group partials in group order into
+//    (n_terms, B). The order of every sum is fixed, so repeated launches
+//    are bit-identical.
+// A masked element is never evaluated and gives 0 and 0, so an inf or NaN
+// there never leaks (the plain version selects, with the same result).
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+// One term's stage constants as the host holds them (ctypes mirrors it).
+struct PairTerm {
+  const float* y;          // (P, K)
+  const float* m;          // (P, K)
+  const float* x;          // (K,)
+  const uint8_t* act;      // (P,)
+  long long P;
+  int K;
+  int pad_;
+};
 
 namespace {
 
@@ -41,11 +79,14 @@ constexpr int MAX_K = 64;
 // dense entry: one thread per pair, DENSE_DECOYS decoys per block
 constexpr int DENSE_THREADS = 256;
 constexpr int DENSE_DECOYS = 8;
-// pair entry: a (PAIR_LANES decoys) x (PAIR_ROWS) thread block walks
-// PAIRS_PER_BLOCK pairs
-constexpr int PAIR_LANES = 32;
-constexpr int PAIR_ROWS = 8;
-constexpr int PAIRS_PER_BLOCK = 64;
+// pair entry: PAIR_THREADS threads per block, PAIR_ELEMS pairs per thread,
+// GROUP blocks per first-level sum
+constexpr int PAIR_THREADS = 256;
+constexpr int PAIR_ELEMS = 4;
+constexpr int MAX_TERMS = 4;
+constexpr int GROUP = 64;
+constexpr int PAIR_BLOCKS_PER_SM = 4;   // resident blocks the grid aims at
+constexpr int SUM_LOADS = 16;   // partials a thread loads at once when summing
 
 __device__ __forceinline__ void spline_at(const float* __restrict__ xs, int K,
                                           const float* __restrict__ y,
@@ -130,59 +171,277 @@ spline_dense_kernel(const float* __restrict__ y, const float* __restrict__ m,
   }
 }
 
-__global__ void __launch_bounds__(PAIR_LANES * PAIR_ROWS)
-spline_pairs_kernel(const float* __restrict__ y, const float* __restrict__ m,
-                    const float* __restrict__ x, int K,
-                    const float* __restrict__ q,
-                    const uint8_t* __restrict__ act, int P, int B,
-                    float* __restrict__ partial, float* __restrict__ deriv) {
-  __shared__ float xs[MAX_K];
-  __shared__ float red[PAIR_ROWS][PAIR_LANES];
-  const int tid = threadIdx.y * PAIR_LANES + threadIdx.x;
-  for (int i = tid; i < K; i += PAIR_LANES * PAIR_ROWS) xs[i] = x[i];
-  __syncthreads();
+// ---------------------------------------------------------------- pairs
 
-  const int b = blockIdx.x * PAIR_LANES + threadIdx.x;
-  const int p0 = blockIdx.y * PAIRS_PER_BLOCK;
-  float acc = 0.f;
-  if (b < B) {
-    for (int pp = threadIdx.y; pp < PAIRS_PER_BLOCK; pp += PAIR_ROWS) {
-      const int p = p0 + pp;
-      if (p >= P) break;
-      const long long e = (long long)p * B + b;
-      float v = 0.f, d = 0.f;   // an inactive pair is never evaluated
-      if (act[p]) spline_at(xs, K, y + (long long)p * K, m + (long long)p * K,
-                            q[e], v, d);
-      acc += v;
-      deriv[e] = d;
+struct PairLaunch {        // the kernel's parameter block, passed by value;
+  const float* y[MAX_TERMS];     // per term, indexed only by constants so
+  const float* m[MAX_TERMS];     // that it stays in the parameter bank
+  const float* x[MAX_TERMS];
+  const uint8_t* act[MAX_TERMS];
+  const float* q[MAX_TERMS];     // (P_t, B)
+  float* deriv[MAX_TERMS];       // (P_t, B)
+  long long P[MAX_TERMS];
+  int K[MAX_TERMS];
+  int block0[MAX_TERMS + 1];     // first x-block of each term; unused = end
+  int group0[MAX_TERMS + 1];     // first group of each term; unused = end
+  int n_terms;
+  int B;
+  int W;                         // decoy lanes per row, min(B, PAIR_THREADS)
+  int R;                         // rows per block, PAIR_THREADS / W
+  int nit;                       // tiles of R x PAIR_ELEMS pairs per block
+  float* partial;                // (gridDim.x, B) per block
+  float* gpartial;               // (n_groups, B) per group
+  float* sums;                   // (n_terms, B)
+  unsigned int* counter;         // gridDim.y final counters, then
+                                 // gridDim.y x n_groups group counters;
+                                 // all 0 between launches
+};
+
+template <typename X, int N>
+__device__ __forceinline__ X pick(const X (&v)[N], int i) {
+  return i == 0 ? v[0] : i == 1 ? v[1] : i == 2 ? v[2] : v[3];
+}
+
+// #{xs[0 .. 63] <= q} for knots padded with +inf: six branch-free steps
+// (a NaN q counts 0). Padding never counts for a finite q, and counting
+// x[K-1] too changes k only where q == x[K-1], which the clip maps to K-2
+// as the TPU kernel's count over x[:K-1] does.
+__device__ __forceinline__ int count_le(const float* __restrict__ xs, float q) {
+  int pos = 0;
+#pragma unroll
+  for (int s = 32; s > 0; s >>= 1) pos += (xs[pos + s - 1] <= q) ? s : 0;
+  return pos;
+}
+
+// Sum of rows first, first + R, ... < end of src (rows of B floats) at
+// column b, in that order: the first SUM_LOADS loads are all in flight before
+// any add. Reads bypass L1 (other blocks wrote them).
+__device__ __forceinline__ float strided_sum(const float* src, int first,
+                                             int end, int R, int B, int b,
+                                             bool on) {
+  float v[SUM_LOADS];
+#pragma unroll
+  for (int i = 0; i < SUM_LOADS; ++i) {
+    const int j = first + i * R;
+    v[i] = on && j < end ? __ldcg(src + (long long)j * B + b) : 0.f;
+  }
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < SUM_LOADS; ++i) s += v[i];
+  if (on)
+    for (int j = first + SUM_LOADS * R; j < end; j += R)
+      s += __ldcg(src + (long long)j * B + b);
+  return s;
+}
+
+// red[rr * W + bl] summed over rr < R in order, by the row-0 threads;
+// every thread passes the barriers.
+__device__ __forceinline__ float rows_sum(float* red, float mine, int tid,
+                                          int R, int W, int bl) {
+  __syncthreads();
+  red[tid] = mine;
+  __syncthreads();
+  float s = 0.f;
+  if (tid < W)
+    for (int rr = 0; rr < R; ++rr) s += red[rr * W + bl];
+  return s;
+}
+
+// True in every thread of the block that is the last of `total` to arrive
+// at `counter` (after its writes are fenced); that block resets it.
+__device__ __forceinline__ bool arrive_last(unsigned int* counter,
+                                            unsigned int total, bool* flag) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    *flag = atomicAdd(counter, 1u) == total - 1;
+    if (*flag) *counter = 0u;      // nobody else arrives: ready to reuse
+  }
+  __syncthreads();
+  const bool last = *flag;
+  if (last) __threadfence();
+  return last;
+}
+
+__global__ void __launch_bounds__(PAIR_THREADS, PAIR_BLOCKS_PER_SM)
+spline_pairs_kernel(const PairLaunch a) {
+  __shared__ float xs[MAX_K];        // knots, +inf past K
+  __shared__ float ih[MAX_K];        // per interval k: 1 / h
+  __shared__ float h6[MAX_K];        //                 h / 6
+  __shared__ float hh6[MAX_K];       //                 h * h / 6
+  __shared__ float red[PAIR_THREADS];
+  __shared__ bool flag;
+
+  const int bx = blockIdx.x;
+  const int ti = (bx >= a.block0[1]) + (bx >= a.block0[2]) +
+                 (bx >= a.block0[3]);           // this block's term, uniform
+  const int K = pick(a.K, ti);
+  const int tid = threadIdx.x;
+  if (tid < MAX_K) {
+    const float* xg = pick(a.x, ti);
+    const float xa = tid < K ? xg[tid] : INFINITY;
+    xs[tid] = xa;
+    if (tid < K - 1) {
+      const float h = xg[tid + 1] - xa;
+      ih[tid] = 1.f / h;
+      h6[tid] = h / 6.f;
+      hh6[tid] = h * h / 6.f;
     }
   }
-  red[threadIdx.y][threadIdx.x] = acc;
   __syncthreads();
-  if (threadIdx.y == 0 && b < B) {
-    float s = 0.f;
+
+  const int B = a.B, W = a.W, R = a.R;
+  const int r = tid / W;
+  const int bl = tid - r * W;
+  const int b = blockIdx.y * W + bl;
+  const bool lane_on = r < R && b < B;
+  const int b0 = pick(a.block0, ti);
+  float acc = 0.f;
+  if (lane_on) {
+    const int P = (int)pick(a.P, ti);
+    const float* __restrict__ y = pick(a.y, ti);
+    const float* __restrict__ m = pick(a.m, ti);
+    const uint8_t* __restrict__ act = pick(a.act, ti);
+    const float* __restrict__ q = pick(a.q, ti);
+    float* __restrict__ deriv = pick(a.deriv, ti);
+    const int tile = R * PAIR_ELEMS;
+    const int first = (bx - b0) * a.nit * tile + r;
+    const int last = min(first - r + a.nit * tile, P);
+    for (int p0 = first; p0 < last; p0 += tile) {
+      float qv[PAIR_ELEMS];
+      bool in[PAIR_ELEMS], on[PAIR_ELEMS];
 #pragma unroll
-    for (int r = 0; r < PAIR_ROWS; ++r) s += red[r][threadIdx.x];
-    partial[(long long)b * gridDim.y + blockIdx.y] = s;
+      for (int e = 0; e < PAIR_ELEMS; ++e) {      // every load started first
+        const int p = p0 + e * R;
+        in[e] = p < last;
+        on[e] = in[e] && act[in[e] ? p : 0] != 0;
+        qv[e] = in[e] ? q[p * B + b] : 0.f;
+      }
+      int k[PAIR_ELEMS];
+      float ya[PAIR_ELEMS], yb[PAIR_ELEMS], ma[PAIR_ELEMS], mb[PAIR_ELEMS];
+#pragma unroll
+      for (int e = 0; e < PAIR_ELEMS; ++e) {
+        k[e] = min(max(count_le(xs, qv[e]) - 1, 0), K - 2);
+        const int row = (on[e] ? p0 + e * R : 0) * K + k[e];
+        ya[e] = y[row];
+        yb[e] = y[row + 1];
+        ma[e] = m[row];
+        mb[e] = m[row + 1];
+      }
+#pragma unroll
+      for (int e = 0; e < PAIR_ELEMS; ++e) {
+        const float qq = qv[e];
+        const int kk = k[e];
+        const float xa = xs[kk], ihk = ih[kk], h6k = h6[kk];
+        const float dy = (yb[e] - ya[e]) * ihk;
+        float v, d;
+        if (qq < xs[0]) {            // k == 0: the first interval's row
+          d = dy - h6k * (2.f * ma[e] + mb[e]);
+          v = ya[e] + d * (qq - xa);
+        } else if (qq > xs[K - 1]) { // k == K-2: the last interval's row
+          d = dy + h6k * (ma[e] + 2.f * mb[e]);
+          v = yb[e] + d * (qq - xs[kk + 1]);
+        } else {
+          const float t = (qq - xa) * ihk;
+          const float u = 1.f - t;
+          const float h2 = hh6[kk];
+          v = u * ya[e] + t * yb[e] + (u * u * u - u) * h2 * ma[e] +
+              (t * t * t - t) * h2 * mb[e];
+          d = dy + h6k * (-(3.f * u * u - 1.f) * ma[e] +
+                          (3.f * t * t - 1.f) * mb[e]);
+        }
+        if (!on[e]) v = d = 0.f;     // never evaluated: 0, 0
+        acc += v;
+        if (in[e]) deriv[(p0 + e * R) * B + b] = d;
+      }
+    }
   }
+  const float blk = rows_sum(red, acc, tid, R, W, bl);   // rows in order
+  if (tid < W && b < B) a.partial[(long long)bx * B + b] = blk;
+
+  // first level: the last block of this group sums its partials
+  const int n_groups = a.group0[MAX_TERMS];
+  const int gl = (bx - b0) / GROUP;
+  const int grp = pick(a.group0, ti) + gl;
+  const int gb0 = b0 + gl * GROUP;
+  const int b1 = ti == 0 ? a.block0[1] : ti == 1 ? a.block0[2]
+               : ti == 2 ? a.block0[3] : a.block0[4];   // this term's end
+  const int gend = min(gb0 + GROUP, b1);
+  unsigned int* finals = a.counter;
+  unsigned int* groups = a.counter + gridDim.y + blockIdx.y * n_groups;
+  if (!arrive_last(groups + grp, gend - gb0, &flag)) return;
+  const float gs = rows_sum(
+      red, strided_sum(a.partial, gb0 + r, gend, R, B, b, lane_on), tid, R,
+      W, bl);
+  if (tid < W && b < B) a.gpartial[(long long)grp * B + b] = gs;
+
+  // second level: the last group sums every term's group partials
+  if (!arrive_last(finals + blockIdx.y, n_groups, &flag)) return;
+  float s[MAX_TERMS];
+#pragma unroll
+  for (int u = 0; u < MAX_TERMS; ++u)
+    s[u] = strided_sum(a.gpartial, a.group0[u] + r, a.group0[u + 1], R, B, b,
+                       lane_on && u < a.n_terms);
+#pragma unroll
+  for (int u = 0; u < MAX_TERMS; ++u) {
+    if (u < a.n_terms) {                       // uniform over the block
+      const float tot = rows_sum(red, s[u], tid, R, W, bl);
+      if (tid < W && b < B) a.sums[(long long)u * B + b] = tot;
+    }
+  }
+}
+
+// Tiles per block for these terms and B on `device`: enough that the grid
+// is about one wave of resident blocks.
+int pair_tiles_per_block(const PairTerm* terms, int n_terms, int B,
+                         int device) {
+  const int W = B < PAIR_THREADS ? B : PAIR_THREADS;
+  const long long tile = (long long)(PAIR_THREADS / W) * PAIR_ELEMS;
+  long long tiles = 0;
+  for (int t = 0; t < n_terms; ++t) tiles += (terms[t].P + tile - 1) / tile;
+  int sms = 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
+          cudaSuccess || sms <= 0)
+    sms = 1;
+  const long long slots = (long long)sms * PAIR_BLOCKS_PER_SM;
+  return (int)((tiles + slots - 1) / slots);
+}
+
+// Blocks and groups of the pair entry for these terms, B and tiles per
+// block; fills block0 and group0 (first block and group of each term, then
+// the end for every unused slot) when given. Returns the number of blocks.
+long long pair_blocks(const PairTerm* terms, int n_terms, int B, int nit,
+                      int* block0, int* group0, long long* n_groups) {
+  const int W = B < PAIR_THREADS ? B : PAIR_THREADS;
+  const long long per_block = (long long)(PAIR_THREADS / W) * PAIR_ELEMS * nit;
+  long long n = 0, g = 0;
+  for (int t = 0; t < n_terms; ++t) {
+    if (block0) block0[t] = (int)n;
+    if (group0) group0[t] = (int)g;
+    const long long nb = (terms[t].P + per_block - 1) / per_block;
+    n += nb;
+    g += (nb + GROUP - 1) / GROUP;
+  }
+  for (int t = n_terms; t <= MAX_TERMS; ++t) {
+    if (block0) block0[t] = (int)n;
+    if (group0) group0[t] = (int)g;
+  }
+  if (n_groups) *n_groups = g;
+  return n;
 }
 
 }  // namespace
 
 // Plain C entry points, bound from Python with ctypes. All float tensors
 // are contiguous float32, masks are one byte per element (torch.bool).
-// `n_blocks` is the caller's width of the (B, n_blocks) partial buffer and
-// must equal the kernel's block count. Each returns cudaGetLastError()
-// after the launch.
+// Each launch returns cudaGetLastError() after the launch.
 
 extern "C" int trx2dy_spline_dense_blocks(long long n_pairs) {
   return (int)((n_pairs + DENSE_THREADS - 1) / DENSE_THREADS);
 }
 
-extern "C" int trx2dy_spline_pairs_blocks(int P) {
-  return (P + PAIRS_PER_BLOCK - 1) / PAIRS_PER_BLOCK;
-}
-
+// `n_blocks` is the caller's width of the (B, n_blocks) partial buffer and
+// must equal the kernel's block count.
 extern "C" int trx2dy_spline_dense(const float* y, const float* m,
                                    const float* x, int K, const float* q,
                                    const uint8_t* mask, long long n_pairs,
@@ -199,17 +458,78 @@ extern "C" int trx2dy_spline_dense(const float* y, const float* m,
   return (int)cudaGetLastError();
 }
 
-extern "C" int trx2dy_spline_pairs(const float* y, const float* m,
-                                   const float* x, int K, const float* q,
-                                   const uint8_t* act, int P, int B,
-                                   float* partial, int n_blocks, float* deriv,
+// Sizes for these terms and B on `device`: the float32 work buffer (sums
+// (n_terms, B), each term's deriv (P_t, B), the (n_blocks, B) and
+// (n_groups, B) partials) and, in *counters, the unsigned ints of the
+// launch's counters; -1 where the terms or B are out of range.
+extern "C" long long trx2dy_spline_pairs_buffer(const PairTerm* terms,
+                                                int n_terms, int B,
+                                                int device,
+                                                long long* counters) {
+  if (n_terms < 1 || n_terms > MAX_TERMS || B <= 0 ||
+      (B + PAIR_THREADS - 1) / PAIR_THREADS > 65535)
+    return -1;
+  long long n = (long long)n_terms * B;
+  for (int t = 0; t < n_terms; ++t) {
+    if (terms[t].P <= 0 || terms[t].K < 2 || terms[t].K > MAX_K ||
+        terms[t].P * B >= 0x7fffffffLL || terms[t].P * MAX_K >= 0x7fffffffLL)
+      return -1;
+    n += terms[t].P * B;
+  }
+  long long groups = 0;
+  const int nit = pair_tiles_per_block(terms, n_terms, B, device);
+  const long long blocks =
+      pair_blocks(terms, n_terms, B, nit, nullptr, nullptr, &groups);
+  if (blocks > 0x7fffffffLL) return -1;
+  const long long W = B < PAIR_THREADS ? B : PAIR_THREADS;
+  if (counters) *counters = ((B + W - 1) / W) * (1 + groups);
+  return n + (blocks + groups) * B;
+}
+
+// One launch for n_terms terms (stage constants in `terms`, host memory)
+// and their queries q[t] (P_t, B) into `buf`, laid out as
+// trx2dy_spline_pairs_buffer says. `counter` holds the unsigned ints it
+// says, 0 before the launch and 0 again after it; launches that share
+// counters must run on one stream. Runs on `device`; the caller's current
+// device is current again after.
+extern "C" int trx2dy_spline_pairs(const PairTerm* terms, int n_terms,
+                                   const float* const* q, int B, float* buf,
+                                   unsigned int* counter, int device,
                                    void* stream) {
-  if (K < 2 || K > MAX_K || B <= 0 || P <= 0 ||
-      n_blocks != trx2dy_spline_pairs_blocks(P) || n_blocks > 65535)
+  if (trx2dy_spline_pairs_buffer(terms, n_terms, B, device, nullptr) < 0)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((B + PAIR_LANES - 1) / PAIR_LANES, n_blocks);
-  const dim3 block(PAIR_LANES, PAIR_ROWS);
-  spline_pairs_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      y, m, x, K, q, act, P, B, partial, deriv);
-  return (int)cudaGetLastError();
+  PairLaunch a{};
+  a.n_terms = n_terms;
+  a.B = B;
+  a.W = B < PAIR_THREADS ? B : PAIR_THREADS;
+  a.R = PAIR_THREADS / a.W;
+  a.nit = pair_tiles_per_block(terms, n_terms, B, device);
+  long long groups = 0;
+  const int blocks = (int)pair_blocks(terms, n_terms, B, a.nit, a.block0,
+                                      a.group0, &groups);
+  a.sums = buf;
+  float* next = buf + (long long)n_terms * B;
+  for (int t = 0; t < n_terms; ++t) {
+    a.y[t] = terms[t].y;
+    a.m[t] = terms[t].m;
+    a.x[t] = terms[t].x;
+    a.act[t] = terms[t].act;
+    a.P[t] = terms[t].P;
+    a.K[t] = terms[t].K;
+    a.q[t] = q[t];
+    a.deriv[t] = next;
+    next += terms[t].P * B;
+  }
+  a.partial = next;
+  a.gpartial = next + (long long)blocks * B;
+  a.counter = counter;
+  int current = 0;
+  cudaGetDevice(&current);
+  if (current != device) cudaSetDevice(device);
+  const dim3 grid(blocks, (B + a.W - 1) / a.W);
+  spline_pairs_kernel<<<grid, PAIR_THREADS, 0,
+                        static_cast<cudaStream_t>(stream)>>>(a);
+  const int err = (int)cudaGetLastError();
+  if (current != device) cudaSetDevice(current);
+  return err;
 }

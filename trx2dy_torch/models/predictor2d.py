@@ -170,7 +170,11 @@ class TriangleAttention(nn.Module):
         L = z.shape[0]
         q, k, v = (t.reshape(L, L, TRI_HEADS, TRI_DIM_HEAD)
                    for t in torch.chunk(self.to_qkv(z), 3, dim=-1))
-        bias = self.linear_for_pair(z)                       # (L, L, H)
+        # (L, L, H) as a view of a head-major (H, L, L) product, so that
+        # the kernel reads each head's bias tile contiguously
+        bias = torch.matmul(self.linear_for_pair.weight,
+                            z.reshape(L * L, -1).T).reshape(-1, L, L) \
+            .permute(1, 2, 0)
         gate = self.to_gate(z)
         out = tri_attn_core(q, k, v, bias, self.wise)
         return self.to_out(gate * out.reshape(L, L, -1))

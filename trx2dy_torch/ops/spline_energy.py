@@ -10,11 +10,14 @@ Two entry points:
   spline_energy_dense(y, m, x, q, mask)  y, m (L, L, K); q (B, L, L);
       mask (L, L) bool -> (B,). The TPU kernel's layout
       (spline_energy_batch), run by energy.batched_energy_fused.
-  spline_energy_pairs(y, m, x, q, act)   y, m (P, K); q (P, B); act (P,)
-      bool -> (B,). The compacted pair lists of the production fold
-      (compact.compact_restraint_energy_batch).
+  spline_energy_pairs(tables, qs)        tables: SplinePairs of up to four
+      terms, each y, m (P_t, K_t), x (K_t,), act (P_t,) bool; qs: one
+      (P_t, B) query tensor per term -> (n_terms, B), one launch for all
+      terms. The compacted pair lists of the production fold
+      (compact.compact_restraint_energy_batch); compact.compact_to builds
+      the SplinePairs once per stage, which is where the tables are checked.
 
-Both take knots x (K,), K <= 64, and float32 tensors. A CPU tensor takes
+Knots have K <= 64 and tensors are float32 on the card. A CPU tensor takes
 the plain version (the port of spline.evaluate_spline_with_deriv or
 _eval_with_deriv_pb); a CUDA tensor launches the kernel or raises.
 `spline_energy_dense.launches` and `spline_energy_pairs.launches` count
@@ -31,6 +34,7 @@ from trx2dy_torch.physics.spline import (
 )
 
 MAX_K = 64
+MAX_TERMS = 4     # terms of one pair launch
 
 
 def spline_dense_plain(y, m, x, q, mask):
@@ -41,13 +45,25 @@ def spline_dense_plain(y, m, x, q, mask):
             torch.where(mask, der, zero))
 
 
-def spline_pairs_plain(y, m, x, q, act):
-    """(per-decoy masked sums (B,), masked deriv (P, B)) in PyTorch."""
-    val, der = _eval_with_deriv_pb(y, m, x, q)
-    zero = torch.zeros((), dtype=q.dtype, device=q.device)
-    keep = act[:, None]
-    return (torch.sum(torch.where(keep, val, zero), dim=0),
-            torch.where(keep, der, zero))
+def spline_pairs_plain(terms, qs):
+    """(per-decoy masked sums (n_terms, B), each term's masked deriv
+    (P_t, B)) in PyTorch; terms holds (y, m, x, act) per term."""
+    sums, derivs = [], []
+    for (y, m, x, act), q in zip(terms, qs):
+        val, der = _eval_with_deriv_pb(y, m, x, q)
+        zero = torch.zeros((), dtype=q.dtype, device=q.device)
+        keep = act[:, None]
+        sums.append(torch.sum(torch.where(keep, val, zero), dim=0))
+        derivs.append(torch.where(keep, der, zero))
+    return torch.stack(sums), tuple(derivs)
+
+
+class _PairTerm(ctypes.Structure):
+    """csrc/spline_energy.cu:PairTerm, one term's stage constants."""
+    _fields_ = [("y", ctypes.c_void_p), ("m", ctypes.c_void_p),
+                ("x", ctypes.c_void_p), ("act", ctypes.c_void_p),
+                ("P", ctypes.c_longlong), ("K", ctypes.c_int),
+                ("pad_", ctypes.c_int)]
 
 
 def _lib():
@@ -57,15 +73,123 @@ def _lib():
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.trx2dy_spline_dense.argtypes = [vp, vp, vp, i, vp, vp, ll, i,
                                             vp, i, vp, vp]
-        lib.trx2dy_spline_pairs.argtypes = [vp, vp, vp, i, vp, vp, i, i,
-                                            vp, i, vp, vp]
         lib.trx2dy_spline_dense_blocks.argtypes = [ll]
-        lib.trx2dy_spline_pairs_blocks.argtypes = [i]
-        for fn in (lib.trx2dy_spline_dense, lib.trx2dy_spline_pairs,
-                   lib.trx2dy_spline_dense_blocks,
-                   lib.trx2dy_spline_pairs_blocks):
+        lib.trx2dy_spline_pairs_buffer.argtypes = [vp, i, i, i, vp]
+        lib.trx2dy_spline_pairs.argtypes = [vp, i, vp, i, vp, vp, i, vp]
+        for fn in (lib.trx2dy_spline_dense, lib.trx2dy_spline_dense_blocks,
+                   lib.trx2dy_spline_pairs):
             fn.restype = ctypes.c_int
+        lib.trx2dy_spline_pairs_buffer.restype = ll
     return lib
+
+
+def _check_tables(terms) -> None:
+    """Raise ValueError unless `terms` are 1..MAX_TERMS tuples (y, m, x,
+    act) that the pair entry takes: knots x (K,) with 2 <= K <= MAX_K,
+    tables y, m (P, K) of the knots' floating dtype (float32 on a CUDA
+    device), act (P,) bool, all contiguous and on one device."""
+    if not 1 <= len(terms) <= MAX_TERMS:
+        raise ValueError(f"spline_energy_pairs: 1 to {MAX_TERMS} terms, "
+                         f"got {len(terms)}")
+    dev = terms[0][0].device
+    for n, (y, m, x, act) in enumerate(terms):
+        name = f"spline_energy_pairs term {n}"
+        K = x.shape[0] if x.dim() == 1 else -1
+        if not 2 <= K <= MAX_K:
+            raise ValueError(f"{name}: knots must be (K,) with 2 <= K <= "
+                             f"{MAX_K}, got {tuple(x.shape)}")
+        P = y.shape[0] if y.dim() == 2 else 0
+        for tname, t, shape in (("y", y, (P, K)), ("m", m, (P, K)),
+                                ("act", act, (P,))):
+            if P < 1 or tuple(t.shape) != shape:
+                raise ValueError(f"{name}: {tname} must be {shape} with "
+                                 f"P >= 1, got {tuple(t.shape)}")
+        ok = (torch.float32,) if dev.type == "cuda" else (torch.float32,
+                                                          torch.float64)
+        if x.dtype not in ok:
+            raise ValueError(f"{name}: tables must be one of {ok} on {dev}, "
+                             f"got {x.dtype}")
+        for tname, t in (("y", y), ("m", m), ("x", x), ("act", act)):
+            want = torch.bool if tname == "act" else x.dtype
+            if t.device != dev or t.dtype != want:
+                raise ValueError(f"{name}: {tname} must be {want} on {dev}, "
+                                 f"got {t.dtype} on {t.device}")
+            if not t.is_contiguous():
+                raise ValueError(f"{name}: {tname} must be contiguous")
+
+
+class SplinePairs:
+    """The stage constants of the pair entry: per term (y, m, x, act),
+    checked once when built (compact.compact_to builds one per stage), so
+    each evaluation checks only its queries."""
+
+    def __init__(self, terms):
+        terms = tuple(tuple(t) for t in terms)
+        _check_tables(terms)
+        self.terms = terms
+        self.device = terms[0][0].device
+        self.sizes = tuple(y.shape[0] for y, _, _, _ in terms)
+        self._c = None        # ctypes PairTerm array, at the first launch
+        self._qptrs = None    # ctypes array of the query pointers
+        self._layout = {}     # B -> (work buffer's part sizes, counters)
+
+    def _launch_constants(self, lib):
+        if self._c is None:
+            self._c = (_PairTerm * len(self.terms))(*(
+                _PairTerm(y.data_ptr(), m.data_ptr(), x.data_ptr(),
+                          act.data_ptr(), y.shape[0], x.shape[0], 0)
+                for y, m, x, act in self.terms))
+            self._qptrs = (ctypes.c_void_p * len(self.terms))()
+        return self._c
+
+    def _parts(self, lib, B: int):
+        """For B decoys: the sizes of the work buffer's parts (sums, each
+        term's deriv, the kernel's partials) and the counters it needs."""
+        layout = self._layout.get(B)
+        if layout is None:
+            counters = ctypes.c_longlong()
+            n = lib.trx2dy_spline_pairs_buffer(
+                self._launch_constants(lib), len(self.terms), B,
+                self.device.index, ctypes.byref(counters))
+            if n < 0:
+                raise ValueError(f"spline_energy_pairs: B={B} out of range")
+            parts = [len(self.terms) * B] + [P * B for P in self.sizes]
+            parts.append(n - sum(parts))
+            layout = self._layout[B] = (parts, counters.value)
+        return layout
+
+
+_counters: dict = {}    # device index -> the pair entry's counters
+
+
+def _counter(dev, n: int) -> torch.Tensor:
+    """At least n zeroed counters on dev, kept for every later launch (each
+    launch leaves them at 0 again)."""
+    c = _counters.get(dev.index)
+    if c is None or c.numel() < n:
+        c = _counters[dev.index] = torch.zeros(max(n, 1024),
+                                               dtype=torch.int32, device=dev)
+    return c
+
+
+def _check_queries(tables: SplinePairs, qs) -> int:
+    """The per-evaluation checks of the pair entry; returns B."""
+    if len(qs) != len(tables.terms):
+        raise ValueError(f"spline_energy_pairs: {len(qs)} query tensors for "
+                         f"{len(tables.terms)} terms")
+    B = qs[0].shape[-1]
+    for n, (q, P) in enumerate(zip(qs, tables.sizes)):
+        if q.device.type != "cuda":
+            raise ValueError(f"spline_energy_pairs: tensors must be on a "
+                             f"CUDA device, got {q.device}")
+        if q.device != tables.device or q.dtype != torch.float32:
+            raise ValueError(f"spline_energy_pairs: q[{n}] must be float32 "
+                             f"on {tables.device}, got {q.dtype} on "
+                             f"{q.device}")
+        if q.shape != (P, B) or not q.is_contiguous():
+            raise ValueError(f"spline_energy_pairs: q[{n}] must be a "
+                             f"contiguous ({P}, {B}), got {tuple(q.shape)}")
+    return B
 
 
 def _check(name, y, m, x, q, mask, table_shape, mask_shape):
@@ -124,19 +248,29 @@ def _dense_fwd(y, m, x, q, mask):
     return out
 
 
-def _pairs_fwd(y, m, x, q, act):
-    if q.device.type == "cpu":
-        return spline_pairs_plain(y, m, x, q, act)
-    P, B = q.shape
-    _check("spline_energy_pairs", y, m, x, q, act, (P,), (P,))
+def _pairs_fwd(tables: SplinePairs, qs):
+    """(sums (n_terms, B), each term's deriv (P_t, B)): one launch."""
+    if qs[0].device.type == "cpu":
+        return spline_pairs_plain(tables.terms, qs)
+    B = _check_queries(tables, qs)
     lib = _lib()
-    n_blocks = lib.trx2dy_spline_pairs_blocks(P)
-    out = _launch("spline_energy_pairs", lib.trx2dy_spline_pairs,
-                  (y.data_ptr(), m.data_ptr(), x.data_ptr(), x.shape[0],
-                   q.data_ptr(), act.data_ptr(), P),
-                  B, n_blocks, q)
+    parts, n_counters = tables._parts(lib, B)
+    dev = tables.device
+    buf = torch.empty(sum(parts), dtype=torch.float32, device=dev)
+    qptrs = tables._qptrs
+    for n, q in enumerate(qs):
+        qptrs[n] = q.data_ptr()
+    err = lib.trx2dy_spline_pairs(
+        tables._c, len(qs), qptrs, B, buf.data_ptr(),
+        _counter(dev, n_counters).data_ptr(), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"spline_energy_pairs kernel launch failed: "
+                           f"cudaError {err}")
     spline_energy_pairs.launches += 1
-    return out
+    sums, *derivs = buf.split(parts)[:-1]
+    return sums.view(len(qs), B), tuple(
+        d.view(P, B) for d, P in zip(derivs, tables.sizes))
 
 
 class _Dense(torch.autograd.Function):
@@ -154,15 +288,15 @@ class _Dense(torch.autograd.Function):
 
 class _Pairs(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, y, m, x, q, act):
-        sums, deriv = _pairs_fwd(y, m, x, q, act)
-        ctx.save_for_backward(deriv)
+    def forward(ctx, tables, *qs):
+        sums, derivs = _pairs_fwd(tables, qs)
+        ctx.save_for_backward(*derivs)
         return sums
 
     @staticmethod
     def backward(ctx, g):
-        (deriv,) = ctx.saved_tensors
-        return None, None, None, g[None, :] * deriv, None
+        return (None, *(gt * d for gt, d in zip(g.unbind(0),
+                                                ctx.saved_tensors)))
 
 
 def spline_energy_dense(y, m, x, q, mask):
@@ -171,10 +305,11 @@ def spline_energy_dense(y, m, x, q, mask):
     return _Dense.apply(y, m, x, q, mask)
 
 
-def spline_energy_pairs(y, m, x, q, act):
-    """(B,) masked spline energies of pair-major q (P, B) over (P, K)
-    tables; differentiable in q."""
-    return _Pairs.apply(y, m, x, q, act)
+def spline_energy_pairs(tables: SplinePairs, qs) -> torch.Tensor:
+    """(n_terms, B) masked spline energies of the pair-major queries qs
+    (one (P_t, B) tensor per term of `tables`), one launch for all terms;
+    differentiable in every q."""
+    return _Pairs.apply(tables, *qs)
 
 
 spline_energy_dense.launches = 0

@@ -7,10 +7,12 @@ r, query i and head h,
   out[r,i,h,:] = sum_j softmax_j(q[r,i,h].k[r,j,h] / sqrt(D) + bias[i,j,h])
                  v[r,j,h,:]
 
-without the (L, L, L, H) logits. Column-wise attention is the same
-function on exchanged row and position axes of q, k, v and out, with the
-bias untransposed; the wrapper passes swapped strides, so no transposed
-copy is made.
+without the (L, L, L, H) logits, on the tensor cores in 3xTF32 (float32
+accuracy; see the source). Column-wise attention is the same function on
+exchanged row and position axes of q, k, v and out, with the bias
+untransposed; the wrapper passes swapped strides, so no transposed copy is
+made. The bias may have any strides; a head-major one (the trunk's) is read
+contiguously.
 
 `tri_attn_core` launches the kernel for CUDA tensors (or raises) and takes
 the plain version only for CPU tensors. `tri_attn_core.launches` counts

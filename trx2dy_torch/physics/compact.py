@@ -4,9 +4,10 @@ Port of trx2dy/physics/compact.py for the shared-table fold. A stage's
 activation masks are constants, so they are compacted on the host into
 per-term pair lists (i, j) with their gathered spline tables, padded to a
 half-octave bucket (the JAX ladder, so shapes match and stay few).
-Geometry is computed per active pair from gathered atoms, and the splines
-run through the kernel's pair entry (ops.spline_energy_pairs), one launch
-per term.
+Geometry is computed per active pair from gathered atoms, and the four
+terms' splines run through the kernel's pair entry (ops.spline_energy_pairs)
+in one launch per energy evaluation; compact_to checks the stage's tables
+for it once.
 
 Atoms are gathered by index: JAX's one-hot product at Precision.HIGHEST
 (compact.py:427-431) is an exact gather chosen for the TPU's matrix unit,
@@ -23,7 +24,7 @@ import numpy as np
 import torch
 
 from trx2dy_torch.geometry.transforms import bond_angle, dihedral
-from trx2dy_torch.ops.spline_energy import spline_energy_pairs
+from trx2dy_torch.ops.spline_energy import SplinePairs, spline_energy_pairs
 from trx2dy_torch.physics.restraints import RestraintMasks, RestraintSet
 from trx2dy_torch.physics.spline import masked_spline_energy
 
@@ -46,6 +47,7 @@ class CompactRestraints(NamedTuple):
     omega: CompactTerm
     theta: CompactTerm
     phi: CompactTerm
+    splines: object = None   # SplinePairs of the four terms (compact_to)
 
 
 class Rows(NamedTuple):
@@ -126,8 +128,10 @@ def compact_restraints(rst: RestraintSet,
 def compact_to(cr: CompactRestraints, L: int, device,
                dtype=torch.float32) -> CompactRestraints:
     """The pair lists of an L-residue target as tensors on `device`: i, j
-    as Rows, contiguous tables and knots of `dtype`, bool activity (one
-    transfer per stage)."""
+    as Rows, tables and knots of `dtype`, bool activity (one transfer per
+    stage), and their SplinePairs for the kernel's pair entry. A table the
+    entry does not take (K > 64, a dtype other than float32 on the card, a
+    non-contiguous array) raises ValueError here, once per stage."""
     def term(t):
         return CompactTerm(
             i=_rows(t.i, L, device), j=_rows(t.j, L, device),
@@ -135,7 +139,9 @@ def compact_to(cr: CompactRestraints, L: int, device,
             m=torch.as_tensor(t.m, dtype=dtype, device=device),
             x=torch.as_tensor(t.x, dtype=dtype, device=device),
             act=torch.as_tensor(t.act, dtype=torch.bool, device=device))
-    return CompactRestraints(*(term(t) for t in cr))
+    terms = [term(t) for t in (cr.dist, cr.omega, cr.theta, cr.phi)]
+    return CompactRestraints(*terms, splines=SplinePairs(
+        (t.y, t.m, t.x, t.act) for t in terms))
 
 
 def compact_restraint_energy(atoms: dict, cr: CompactRestraints,
@@ -166,7 +172,8 @@ def compact_restraint_energy_batch(atoms_b: dict, cr: CompactRestraints,
                                    w_atom_pair, w_dihedral, w_angle,
                                    dist_on_ca: bool = False) -> torch.Tensor:
     """Restraint energy of a decoy batch (atoms (B, L, 3)) over device pair
-    lists (compact_to), pair-major: (B,) energies."""
+    lists (compact_to), pair-major: (B,) energies. The four terms' queries
+    go to the spline kernel in one launch; the weights stay outside it."""
     # (L, B, 9): per residue row, all decoys' N | CA | CB
     A = torch.cat([atoms_b["N"], atoms_b["CA"], atoms_b["CB"]], dim=-1)
     A = A.transpose(0, 1).contiguous()
@@ -175,24 +182,25 @@ def compact_restraint_energy_batch(atoms_b: dict, cr: CompactRestraints,
         picked = gather_rows(A, rows).unflatten(-1, (3, 3))  # (P, B, 3, 3)
         return picked[..., 0, :], picked[..., 1, :], picked[..., 2, :]
 
-    def term(t, q):
-        return spline_energy_pairs(t.y, t.m, t.x, q.contiguous(), t.act)
-
     t = cr.dist
     _, ca_i, cb_i = side(t.i)
     _, ca_j, cb_j = side(t.j)
     dvec = (ca_i - ca_j) if dist_on_ca else (cb_i - cb_j)
-    e = w_atom_pair * term(t, torch.sqrt(torch.sum(dvec * dvec, dim=-1)
-                                         + 1e-12))
+    q_dist = torch.sqrt(torch.sum(dvec * dvec, dim=-1) + 1e-12)
     t = cr.omega
     _, ca_i, cb_i = side(t.i)
     _, ca_j, cb_j = side(t.j)
-    e = e + w_dihedral * term(t, dihedral(ca_i, cb_i, cb_j, ca_j))
+    q_omega = dihedral(ca_i, cb_i, cb_j, ca_j)
     t = cr.theta
     n_i, ca_i, cb_i = side(t.i)
     _, _, cb_j = side(t.j)
-    e = e + w_dihedral * term(t, dihedral(n_i, ca_i, cb_i, cb_j))
+    q_theta = dihedral(n_i, ca_i, cb_i, cb_j)
     t = cr.phi
     _, ca_i, cb_i = side(t.i)
     _, _, cb_j = side(t.j)
-    return e + w_angle * term(t, bond_angle(ca_i, cb_i, cb_j))
+    q_phi = bond_angle(ca_i, cb_i, cb_j)
+    e_dist, e_omega, e_theta, e_phi = spline_energy_pairs(
+        cr.splines, [q.contiguous() for q in (q_dist, q_omega, q_theta,
+                                              q_phi)]).unbind(0)
+    return w_atom_pair * e_dist + w_dihedral * e_omega + \
+        w_dihedral * e_theta + w_angle * e_phi

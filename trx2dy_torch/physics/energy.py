@@ -280,7 +280,7 @@ def batched_energy_weighted_compact(x, cr, w_vec, dist_on_ca: bool = False,
     """(B, 3L) flattened torsions -> (B,) energies over compacted pair
     lists (compact.compact_to), the production path of the staged fold.
     The restraint terms run pair-major through the spline kernel's pair
-    entry, one launch per term."""
+    entry, one launch for all four terms."""
     w = _weights(w_vec)
     t = x.reshape(x.shape[0], 3, -1)
     atoms = build_backbone(t[:, 0], t[:, 1], t[:, 2])
