@@ -26,17 +26,28 @@ Phases; any failure exits non-zero and no phase is skipped:
      normalisation, and the L=256 request is recomputed on the plain path
      on the card;
   5. the main path, second half: the folder folds (a) a seeded synthetic
-     compact target at L=150 into 50 decoys (mode 2, max_iter 1000, no
-     relax, orientation restraints on) through fold_ensemble, and (b) the
-     L=64 NMR pred_npz of phase 4 into 8 decoys through the fold CLI, whose
-     PDBs are read back. Energies must be finite and below each decoy's
-     start; the spline pair kernel must launch once per energy
-     evaluation; (a)'s final decoys are rescored through the dense entry
-     (batched_energy_fused) and must match. Request (b) is held to the
-     plain spline path on the card: first energy and gradient within 1e-4,
-     final energy medians within FOLD_MEDIAN_TOL; a repeated evaluation
-     must be bit-identical (the fold is deterministic). One 250-iteration
-     L-BFGS chunk of (a) is profiled;
+     compact target at L=150 into 50 decoys through fold_ensemble at its
+     defaults (mode 2, max_iter 1000, orientation restraints, FastRelax's
+     two rounds with the round-1 cartesian block, the final cartesian
+     refinement), then packs their sidechains; (b) the L=64 NMR pred_npz
+     of phase 4 into 8 decoys through the fold CLI with --no-fastrelax;
+     (b') the same through the CLI with no flags but I/O, writing
+     full-atom PDBs. Energies must be finite and below each decoy's start;
+     the spline pair kernel must launch once per energy evaluation over
+     each whole fold (the idealize pass and packing have no restraint term
+     and launch nothing); (a)'s final decoys are rescored through the
+     dense entry (batched_energy_fused) and must match; (a)'s CA-CA
+     distances and refinement moves are reported, and the JAX package's
+     refinement test is run on the card with its bands (CA_CA_BAND,
+     REFINE_MOVE); packing keeps the backbone slots exactly and lowers no
+     clash energy; (b')'s PDBs carry side chains and the fold's N/CA/C/O. The
+     first energy and gradient of (b)'s centroid energy, of a relax-stage
+     energy and of the cartesian energy are held to the plain spline path
+     on the card (FOLD_START_TOL); request (b) is refolded on the plain
+     path, final energy medians within FOLD_MEDIAN_TOL; a repeated
+     evaluation must be bit-identical (the fold is deterministic). One
+     L-BFGS chunk each of the centroid, relax and cartesian energies is
+     profiled;
   6. a `kernels` JSON line, then {"ok": true, "device": {...}} last.
 
 Launch counts are set to 0 just before each request of phases 4 and 5 and
@@ -77,7 +88,7 @@ SPLINE_DERIV_TOL = 1e-4    # dE/dq, times max(1, |reference|)
 SPLINE_FLOPS = 40          # per active query: search, cubic, derivative
 GRIDS = ("dist", "omega", "theta", "phi")
 FOLD_L, FOLD_DECOYS, FOLD_ITERS = 150, 50, 1000   # headline request (a)
-CLI_L, CLI_DECOYS = 64, 8                          # request (b)
+CLI_L, CLI_DECOYS = 64, 8                          # requests (b), (b')
 FOLD_START_TOL = 1e-4      # first energy and gradient, kernel vs plain path
 # final energy medians, kernel vs plain path. The fold is deterministic,
 # but the two paths' trajectories diverge from rounding, and which decoys
@@ -86,6 +97,11 @@ FOLD_START_TOL = 1e-4      # first energy and gradient, kernel vs plain path
 FOLD_MEDIAN_TOL = 0.10
 RESCORE_TOL = 1e-4         # dense-entry rescoring vs the fold's energies
 PROFILE_ITERS = 250        # one STAGE_CHUNK
+# the JAX package's refinement bands (tests/test_physics.py:489-507,
+# 842-860), held on the inputs of those tests (refine_band_phase)
+CA_CA_BAND = (2.7, 4.2)    # consecutive CA-CA distances (A)
+REFINE_MOVE = 1.5          # refined CA from where it started, at most (A)
+CLASH_TOL = 1e-3           # packed clash energy <= start + CLASH_TOL
 
 # Data-sheet peaks: float32 outside the tensor cores, memory rate, dense
 # TF32 on the tensor cores.
@@ -639,6 +655,7 @@ def run_fold_request(label: str, L: int, B: int, fn, dev):
     req = {"request": label, "L": L, "decoys": B, "wall_s": wall,
            "decoys_per_min": 60.0 * B / wall, "energy_evals": STATS.evals,
            "ms_per_eval": 1e3 * wall / max(STATS.evals, 1),
+           "restraint_free_evals": STATS.free_evals,
            "host_syncs": STATS.syncs,
            "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
            "spline_pair_launches": spline_energy_pairs.launches,
@@ -666,11 +683,12 @@ def value_and_grad(fun, x):
     return e.detach().double(), g.double()
 
 
-def profile_chunk(fun, x0, dev) -> dict:
+def profile_chunk(fun, x0, dev, iters: int = PROFILE_ITERS,
+                  label: str = "centroid") -> dict:
     """torch.profiler (device activity only, which keeps its cost down)
-    over one PROFILE_ITERS-iteration L-BFGS chunk of the centroid stage
-    from x0: device-busy share, kernel launches per energy evaluation, the
-    five kernels with the most device time. Only device events count: the
+    over one L-BFGS chunk of up to `iters` iterations of fun from x0:
+    device-busy share, kernel launches per energy evaluation, the five
+    kernels with the most device time. Only device events count: the
     runtime's launch calls are listed beside them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -678,10 +696,11 @@ def profile_chunk(fun, x0, dev) -> dict:
 
     st = lbfgs_run(fun, lbfgs_init(fun, x0), 2)          # warm
     torch.cuda.synchronize(dev)
+    k0 = st.k
     STATS.reset()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        st = lbfgs_run(fun, st, PROFILE_ITERS)
+        st = lbfgs_run(fun, st, iters)
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
     kernels = sorted((e for e in prof.key_averages()
@@ -689,8 +708,10 @@ def profile_chunk(fun, x0, dev) -> dict:
                      key=event_device_us, reverse=True)
     busy_us = sum(event_device_us(e) for e in kernels)
     launches = sum(e.count for e in kernels)
-    out = {"iterations": PROFILE_ITERS, "energy_evals": STATS.evals,
-           "host_syncs": STATS.syncs, "wall_s": wall,
+    out = {"chunk": label, "iterations": st.k - k0,
+           "energy_evals": STATS.evals, "host_syncs": STATS.syncs,
+           "wall_s": wall,
+           "ms_per_eval": 1e3 * wall / max(STATS.evals, 1),
            "device_busy_share": busy_us / (1e6 * wall) if busy_us else None,
            "kernel_launches": launches,
            "launches_per_eval": launches / max(STATS.evals, 1),
@@ -701,17 +722,173 @@ def profile_chunk(fun, x0, dev) -> dict:
     return out
 
 
+def synthetic_sequence(L: int, seed: int) -> str:
+    """A seeded sequence of the 18 amino acids other than GLY and CYS: the
+    sidechains give packing real work, while the fold is the one an
+    all-ALA sequence gets (no glycine pair leaves the relax restraints, no
+    disulfide is detected)."""
+    letters = np.array(list("ADEFHIKLMNPQRSTVWY"))
+    return "".join(np.random.default_rng(seed).choice(letters, L))
+
+
+def relax_energies(npz: dict, seq: str, dev):
+    """(the relax-round-1 energy x -> (B,) with the first ramp stage's
+    weights, the relax-2 tables, the full relax weights), prepared as
+    fold_ensemble prepares them."""
+    from trx2dy_torch.physics import compact, energy, folder, restraints
+    rst = restraints.compile_restraints(npz)
+    L = len(seq)
+    r1, r2 = (compact.compact_to(compact.compact_restraints(
+        rst, restraints.restraint_masks(rst, seq, 1, L, pcut=pc,
+                                        nogly=True)), L, dev)
+        for pc in (0.15, 0.30))
+    fa, cst, _ = folder.RELAX_SCHEDULE_R1[0]
+    w1 = torch.as_tensor(energy.weights_to_vec(
+        folder._ramped_relax_weights(fa, cst)), device=dev)
+    w_full = torch.as_tensor(energy.weights_to_vec(folder.SCOREFXN_RELAX),
+                             device=dev)
+    return (lambda x: energy.batched_energy_weighted_compact(x, r1, w1)), \
+        r2, w_full
+
+
+def check_kernel_vs_plain(label: str, fun, x) -> float:
+    """First value and gradient of fun at x through the kernel and on the
+    plain spline path: their largest relative difference, held to
+    FOLD_START_TOL."""
+    e_k, g_k = value_and_grad(fun, x)
+    with plain_splines():
+        e_p, g_p = value_and_grad(fun, x)
+    diff = max(((e_k - e_p).abs() / e_p.abs()).max().item(),
+               ((g_k - g_p).abs().max() / g_p.abs().max()).item())
+    print(f"{label} plain-path check: first energy/gradient {diff}",
+          flush=True)
+    check(diff <= FOLD_START_TOL, f"{label}: first evaluation off by {diff}")
+    return diff
+
+
+def check_decoys(label: str, res, refined: bool) -> dict:
+    """Finite atoms; the CA-CA distances and the largest CA move of the
+    refined atoms from the NeRF build of the returned torsions, reported
+    (on a target with restraints this sharp the JAX package's refinement
+    leaves both bands too: scripts/refine_band_check.py); the atoms moved
+    at all only if refined."""
+    from trx2dy_torch.geometry.nerf import build_backbone
+    check(all(bool(torch.isfinite(a).all()) for a in res.atoms.values()),
+          f"fold {label}: non-finite atoms")
+    ca = res.atoms["CA"].double()
+    d = torch.linalg.vector_norm(ca[:, 1:] - ca[:, :-1], dim=-1)
+    t = res.torsions
+    with torch.no_grad():
+        ideal = build_backbone(t[:, 0], t[:, 1], t[:, 2])
+    move = torch.linalg.vector_norm(res.atoms["CA"] - ideal["CA"], dim=-1)
+    out = {"ca_ca_min": d.min().item(), "ca_ca_max": d.max().item(),
+           "ca_ca_outside_band": int(((d <= CA_CA_BAND[0])
+                                      | (d >= CA_CA_BAND[1])).sum()),
+           "refine_ca_move_max": move.max().item(),
+           "refine_ca_move_median": move.amax(1).median().item()}
+    print(f"decoys {label} " + json.dumps(out), flush=True)
+    check((out["refine_ca_move_max"] > 0) == refined,
+          f"fold {label}: refined atoms moved {move.max().item()} A")
+    return out
+
+
+def refine_band_phase(dev) -> dict:
+    """The JAX package's own refinement test (tests/test_physics.py:
+    TestCartesianRefine) on the card: a random-histogram L=14 target folded
+    without relax (30 iterations, 2 decoys), refined with the dense and the
+    compact tables (60 iterations) against the pcut 0.30 relax set: the
+    energy no higher than the start's, every CA within REFINE_MOVE of where
+    it was, CA-CA distances in CA_CA_BAND."""
+    from trx2dy_torch.physics import cartmin, compact, restraints
+    from trx2dy_torch.physics.energy import weights_to_vec
+    from trx2dy_torch.physics.folder import SCOREFXN_RELAX, fold_ensemble
+    L, seq = 14, "ARNDCQEGHILKMF"
+    npz = random_histograms(L, seed=91)
+    res = fold_ensemble(npz, seq, torch.Generator().manual_seed(1),
+                        n_decoys=2, max_iter=30, fastrelax=False, device=dev)
+    rst = restraints.compile_restraints(npz)
+    masks = restraints.restraint_masks(rst, seq, 1, L, pcut=0.30, nogly=True)
+    cr = compact.compact_to(compact.compact_restraints(rst, masks), L, dev)
+    w = torch.as_tensor(weights_to_vec(SCOREFXN_RELAX), device=dev)
+    with torch.no_grad():
+        e0 = cartmin._cart_efun(res.atoms, cr, w, "compact")(
+            torch.zeros(2, 15 * L, device=dev))
+    out = {"start_energy": e0.tolist()}
+    for kind, refine in (
+            ("dense", lambda: cartmin.cartesian_refine(
+                res.atoms, rst, masks, SCOREFXN_RELAX, max_iter=60)),
+            ("compact", lambda: cartmin.cartesian_refine_compact(
+                res.atoms, cr, SCOREFXN_RELAX, max_iter=60))):
+        atoms, f = refine()
+        move = (atoms["CA"] - res.atoms["CA"]).abs().max().item()
+        d = torch.linalg.vector_norm(atoms["CA"][:, 1:]
+                                     - atoms["CA"][:, :-1], dim=-1)
+        out[kind] = {"energy": f.tolist(), "ca_move_max": move,
+                     "ca_ca_min": d.min().item(), "ca_ca_max": d.max().item()}
+        check(bool(torch.isfinite(f).all() and (f <= e0 + 1e-3).all()),
+              f"refine band {kind}: energy {f.tolist()} above the start's")
+        check(move < REFINE_MOVE, f"refine band {kind}: CA moved {move} A")
+        check(CA_CA_BAND[0] < out[kind]["ca_ca_min"] and
+              out[kind]["ca_ca_max"] < CA_CA_BAND[1],
+              f"refine band {kind}: CA-CA distances {out[kind]}")
+    print("refine band " + json.dumps(out), flush=True)
+    return out
+
+
+def pack_phase(res, seq: str, dev) -> dict:
+    """pack_ensemble on the fold's decoys, onto its refined atoms: time,
+    peak memory, the clash energy before (staggered start) and after."""
+    from trx2dy_torch.physics import sidechain
+    from trx2dy_torch.physics.minimize import STATS
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    STATS.reset()
+    t0 = time.perf_counter()
+    xyz, mask, chi = sidechain.pack_ensemble(res.torsions, seq,
+                                             backbone=res.atoms, device=dev)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    pin = sidechain.pack_input(seq, dev)
+    chi0 = torch.full_like(chi, np.pi) * pin.chi_mask
+    with torch.no_grad():
+        start, _, _ = sidechain.atom14_from_torsions(
+            res.torsions, chi0, pin, backbone=res.atoms)
+        before = sidechain._clash_energy(start, pin)
+        after = sidechain._clash_energy(xyz, pin)
+    out = {"decoys": xyz.shape[0], "L": xyz.shape[1], "wall_s": wall,
+           "peak_mem_gib": peak, "pack_evals": STATS.free_evals,
+           "spline_evals": STATS.evals, "host_syncs": STATS.syncs,
+           "clash_before_median": before.median().item(),
+           "clash_after_median": after.median().item()}
+    print("pack " + json.dumps(out), flush=True)
+    check(bool(torch.isfinite(xyz).all()), "pack: non-finite atom14")
+    for name, slot in sidechain._BB_SLOTS.items():
+        check(torch.equal(xyz[:, :, slot], res.atoms[name]),
+              f"pack: backbone slot {name} differs from the fold's atoms")
+    check(bool((after <= before + CLASH_TOL).all()),
+          f"pack: clash rose ({before.tolist()} -> {after.tolist()})")
+    check(STATS.evals == 0, "pack: an evaluation with a restraint term")
+    return out
+
+
 def fold_phase(dev, work: Path, npz_b: str, seq_b: str):
-    """Requests (a) and (b), the plain-path check of (b), the profile."""
+    """Requests (a), (b) and (b'), packing (a)'s decoys, the plain-path
+    checks, the profiles."""
     from trx2dy_torch.cli import fold as fold_cli
     from trx2dy_torch.io.pdbio import read_pdb_backbone
+    from trx2dy_torch.physics import cartmin
     from trx2dy_torch.physics.energy import batched_energy_fused
-    from trx2dy_torch.physics.folder import fold_ensemble
+    from trx2dy_torch.geometry.nerf import build_backbone
+    from trx2dy_torch.physics.folder import (
+        CART_SCHEDULE_R1, RELAX_SCHEDULE_R1, fold_ensemble,
+    )
     from trx2dy_torch.physics.restraints import masks_to, tables_to
 
-    # (a) the headline: synthetic compact target, L=150, 50 decoys
+    # (a) the headline: synthetic compact target, L=150, 50 decoys, the
+    # default protocol (relax, cartesian block and refinement)
     npz_a = synthetic_target(FOLD_L, seed=1)
-    seq_a = "A" * FOLD_L
+    seq_a = synthetic_sequence(FOLD_L, seed=1)
     energy_a, rst_a, masks_a, w_cent = centroid_energy(npz_a, seq_a, dev)
     x0_a = start_torsions(7, FOLD_L, FOLD_DECOYS, dev)
     with torch.no_grad():
@@ -721,8 +898,7 @@ def fold_phase(dev, work: Path, npz_b: str, seq_b: str):
     def request_a():
         res = fold_ensemble(npz_a, seq_a, torch.Generator().manual_seed(7),
                             n_decoys=FOLD_DECOYS, max_iter=FOLD_ITERS,
-                            fastrelax=False, use_orient=True, device=dev,
-                            stage_log=log_a)
+                            use_orient=True, device=dev, stage_log=log_a)
         with torch.no_grad():     # rescored through the dense entry
             fused = batched_energy_fused(
                 res.torsions.reshape(FOLD_DECOYS, -1),
@@ -733,8 +909,12 @@ def fold_phase(dev, work: Path, npz_b: str, seq_b: str):
                                                request_a, dev)
     print("stage_log a " + json.dumps(log_a), flush=True)
     check_fold("a", res_a.energy, start_a)
-    check(all(0 < it <= max(FOLD_ITERS, 500) for _, it, _ in log_a),
+    check(all(0 < it <= max(FOLD_ITERS, 500) for lab, it, _ in log_a
+              if lab != "idealize"),
           f"fold a: stage iterations out of range: {log_a}")
+    labels = {lab for lab, _, _ in log_a}
+    check({"cent", "relax1", "cart_r1", "relax2", "cart_refine",
+           "idealize"} <= labels, f"fold a: stages missing: {labels}")
     check(req_a["spline_dense_launches"] == 4,
           "fold a: the dense rescoring did not launch 4 times")
     rescore = ((fused_a.double() - res_a.energy.double()).abs()
@@ -742,8 +922,24 @@ def fold_phase(dev, work: Path, npz_b: str, seq_b: str):
     print(f"fold a: dense-entry rescoring differs by {rescore} (relative)",
           flush=True)
     check(rescore <= RESCORE_TOL, f"fold a: rescoring differs by {rescore}")
+    req_a["decoys"] = check_decoys("a", res_a, refined=True)
+    req_a["pack"] = pack_phase(res_a, seq_a, dev)
+    refine_band_phase(dev)
 
-    # (b) the real main path: slice 1's L=64 NMR pred_npz through the CLI
+    # the relax and cartesian energies held to the plain spline path
+    relax_a, r2_a, w_relax = relax_energies(npz_a, seq_a, dev)
+    x_a = res_a.torsions.reshape(FOLD_DECOYS, -1)
+    check_kernel_vs_plain("relax energy a", relax_a, x_a)
+    t = res_a.torsions
+    with torch.no_grad():
+        atoms_a = build_backbone(t[:, 0], t[:, 1], t[:, 2])
+    cart_a = cartmin._cart_efun(atoms_a, r2_a, w_relax, "compact")
+    delta = torch.randn(FOLD_DECOYS, 15 * FOLD_L,
+                        generator=torch.Generator().manual_seed(3))
+    check_kernel_vs_plain("cartesian energy a", cart_a,
+                          0.05 * delta.to(dev))
+
+    # (b) slice 1's L=64 NMR pred_npz through the CLI, without relax
     fasta = work / "t64.fasta"
     fasta.write_text(f">t64\n{seq_b}\n")
     with np.load(npz_b) as f:
@@ -755,14 +951,14 @@ def fold_phase(dev, work: Path, npz_b: str, seq_b: str):
     out_dir = work / "fold"
     out_dir.mkdir(exist_ok=True)
 
-    def request_b():
-        return fold_cli.main(["-NPZ", npz_b, "-FASTA", str(fasta), "-OUT",
-                              str(out_dir / "t64.pdb"), "--n_decoys",
-                              str(CLI_DECOYS), "--no-fastrelax", "--seed",
-                              "5", "--device", str(dev)])
+    def cli(out: str, *flags):
+        return lambda: fold_cli.main(
+            ["-NPZ", npz_b, "-FASTA", str(fasta), "-OUT",
+             str(out_dir / out), "--n_decoys", str(CLI_DECOYS), "--seed",
+             "5", "--device", str(dev), *flags])
 
-    (paths, res_b), req_b = run_fold_request("b", CLI_L, CLI_DECOYS,
-                                             request_b, dev)
+    (paths, res_b), req_b = run_fold_request(
+        "b", CLI_L, CLI_DECOYS, cli("t64.pdb", "--no-fastrelax"), dev)
     check_fold("b", res_b.energy, start_b)
     check(len(paths) == CLI_DECOYS, f"fold b: {len(paths)} PDBs written")
     for k, path in enumerate(paths):
@@ -795,8 +991,47 @@ def fold_phase(dev, work: Path, npz_b: str, seq_b: str):
     check(first <= FOLD_START_TOL, f"fold b: first evaluation off by {first}")
     check(med <= FOLD_MEDIAN_TOL, f"fold b: medians differ by {med}")
 
-    prof = profile_chunk(energy_a, x0_a, dev)
-    return [req_a, req_b], prof
+    # (b') the same pred_npz through the CLI with no flags but I/O: relax,
+    # cartesian refinement, full-atom PDBs
+    log_c = []
+
+    def request_c():
+        # the CLI takes fold_ensemble from its module when it runs: wrap it
+        # to keep the stage log
+        import trx2dy_torch.physics.folder as folder
+
+        def logged(*a, **kw):
+            return fold_ensemble(*a, stage_log=log_c, **kw)
+        folder.fold_ensemble = logged
+        try:
+            return cli("t64fa.pdb")()
+        finally:
+            folder.fold_ensemble = fold_ensemble
+
+    (paths_c, res_c), req_c = run_fold_request("b'", CLI_L, CLI_DECOYS,
+                                               request_c, dev)
+    print("stage_log b' " + json.dumps(log_c), flush=True)
+    check_fold("b'", res_c.energy, start_b)
+    req_c["decoys"] = check_decoys("b'", res_c, refined=True)
+    check(len(paths_c) == CLI_DECOYS, f"fold b': {len(paths_c)} PDBs")
+    for k, path in enumerate(paths_c):
+        with open(path) as f:
+            names = {ln[12:16].strip() for ln in f if ln.startswith("ATOM")}
+        check(len(names - {"N", "CA", "C", "O", "CB"}) > 0,
+              f"{path}: no side-chain atoms")
+        coords, seq = read_pdb_backbone(path)
+        check(seq == seq_b, f"{path}: read back another sequence")
+        for name in ("N", "CA", "C", "O"):
+            got = res_c.atoms[name][k].cpu().numpy()
+            check(float(np.abs(coords[name] - got).max()) < 1e-3,
+                  f"{path}: {name} differs from the fold's atoms")
+
+    profs = [profile_chunk(energy_a, x0_a, dev),
+             profile_chunk(relax_a, x0_a, dev, RELAX_SCHEDULE_R1[0][2],
+                           "relax"),
+             profile_chunk(cart_a, torch.zeros_like(delta).to(dev), dev,
+                           CART_SCHEDULE_R1[0][2], "cartesian")]
+    return [req_a, req_b, req_c], profs
 
 
 def kernel_summary(kernel_rows, spline_rows, launches: int, folds) -> list:

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Fold request (a) of chip_smoke.py with the port of a given tree, for
-comparing two trees on one GPU in one call.
+"""Fold chip_smoke.py's synthetic L=150 target without relax (its request
+(a) up to PR 3, which every tree since PR 2 runs) with the port of a given
+tree, for comparing two trees on one GPU in one call.
 
     python3 scripts/fold_compare.py TREE LABEL
 

@@ -110,10 +110,11 @@ def test_transforms_match_jax():
     assert _rel(ttf.dihedral(*tp), jtf.dihedral(*jp)) < 1e-5
     assert _rel(ttf.bond_angle(*tp[:3]), jtf.bond_angle(*jp[:3])) < 1e-5
     assert _rel(ttf.virtual_cb(*tp[:3]), jtf.virtual_cb(*jp[:3])) < 1e-5
-    t = _torsions(1, 20, seed=5)[0]
-    atoms = {k: np.asarray(v) for k, v in
-             jnerf.build_backbone(*jnp.asarray(t)).items()}
-    n, ca, c = (atoms[k] for k in ("N", "CA", "C"))
+    # a backbone as input to both (the NeRF builds are compared in
+    # test_build_backbone_matches_jax)
+    t = torch.from_numpy(_torsions(1, 20, seed=5)[0])
+    n, ca, c = (v.numpy() for k, v in tnerf.build_backbone(*t).items()
+                if k in ("N", "CA", "C"))
     port = ttf.geometry_maps_6d(*(torch.from_numpy(a) for a in (n, ca, c)))
     ref = jtf.geometry_maps_6d(jnp.asarray(n), jnp.asarray(ca),
                                jnp.asarray(c))
@@ -383,6 +384,7 @@ def test_pose_energy_matches_jax(restraints16):
     for name in ("SCOREFXN_CENT", "SCOREFXN_VDW"):
         got = tenergy.pose_energy(torch.from_numpy(t), rt, mt,
                                   getattr(tenergy, name))
-        want = jenergy.pose_energy(jnp.asarray(t), jr, jmasks,
-                                   getattr(jenergy, name))
+        want = jax.jit(lambda tt, w=getattr(jenergy, name):
+                       jenergy.pose_energy(tt, jr, jmasks, w))(
+            jnp.asarray(t))
         assert abs(float(got) - float(want)) <= 1e-4 * abs(float(want))

@@ -251,11 +251,15 @@ def test_fold_matches_jax_distributionally():
 def test_fold_refusals_and_padding(tmp_path):
     npz = _rand_npz(10, key=8)
     seq = SEQ16[:10]
-    for kwargs in ({"fastrelax": True}, {"rst_mode": "af2"},
-                   {"rst_mode": "idp"}, {"rst_mode": "gpcr"},
-                   {"staged_execution": False}):
+    known = {"dist": np.full((1, 10, 10), 8.0, np.float32)}
+    for kwargs, err in (({"staged_execution": False}, NotImplementedError),
+                        ({"rst_mode": "af2"}, ValueError),   # --orient
+                        ({"rst_mode": "gpcr"}, ValueError),  # no known_npz
+                        ({"rst_mode": "xyz"}, ValueError),
+                        ({"rst_mode": "gpcr", "known_npz": known,
+                          "pad_to": 12}, ValueError)):
         args = {"fastrelax": False, "device": "cpu", **kwargs}
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(err):
             tfolder.fold_ensemble(npz, seq, None, **args)
     with pytest.raises(ValueError, match="does not match"):
         tfolder.fold_ensemble(npz, seq + "A", None, fastrelax=False,
@@ -292,8 +296,8 @@ def test_cli_writes_decoys_that_read_back(tmp_path, capsys):
     (tmp_path / "t.fasta").write_text(">t\n" + SEQ16[:L] + "\n")
     base = ["-NPZ", str(tmp_path / "t.npz"), "-FASTA",
             str(tmp_path / "t.fasta"), "-OUT", str(tmp_path / "d.pdb")]
-    with pytest.raises(NotImplementedError, match="--no-fastrelax"):
-        tcli.main(base + ["--device", "cpu"])
+    with pytest.raises(ValueError, match="requires known_npz"):
+        tcli.main(base + ["-r", "gpcr", "--device", "cpu"])
     paths, res = tcli.main(base + ["--n_decoys", "2", "--no-fastrelax",
                                    "-n", "10", "--seed", "3", "--device",
                                    "cpu"])

@@ -22,6 +22,7 @@ from trx2dy_torch.device import resolve_device
 from trx2dy_torch.dynamics.driver import geometry_stage
 from trx2dy_torch.models.predictor2d_infer import pred_2d_geometry
 from trx2dy_torch.physics.folder import fold_ensemble
+from trx2dy_torch.physics.sidechain import pack_ensemble
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "trx2dy_torch").rglob("*.py")) \
@@ -63,6 +64,8 @@ def test_fold_entry_points_raise_without_cuda(monkeypatch, tmp_path):
                        str(tmp_path / "missing.fasta"), "-OUT",
                        str(tmp_path / "d.pdb"), "--no-fastrelax"])
     assert not (tmp_path / "d.pdb").exists()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pack_ensemble(np.zeros((1, 3, 4), np.float32), "AAAA")
 
 
 def test_resolve_device_turns_tf32_off(monkeypatch):

@@ -1,7 +1,7 @@
-"""Minimal PDB reading and writing for backbone(+CB) models.
+"""Minimal PDB reading and writing: backbone(+CB) and full-atom models.
 
-The port's own copy of trx2dy/io/pdbio.py's backbone functions. The
-writer follows the strict 80-column ATOM record layout of the reference
+The port's own copy of trx2dy/io/pdbio.py. The writers follow the strict
+80-column ATOM record layout of the reference
 (trRosettaX2/strutils/utils_3d/prot_converter.py:292-385); the reader
 takes the atoms the Dynamics loop needs (N, CA, C, O, CB).
 """
@@ -101,3 +101,38 @@ def read_pdb_backbone(path: str, return_resseq: bool = False):
     if return_resseq:
         return coords, "".join(seq), [key[1].strip() for key in order]
     return coords, "".join(seq)
+
+
+def write_pdb_atom14(path, seq, atom14, atom14_mask=None, plddt=None,
+                     chain: str = "A") -> None:
+    """Write a full-atom (atom14) model: atom14 (L, 14, 3), atom14_mask
+    (L, 14), plddt (L,) in [0, 1] (x100 in the B-factor column; 0 without).
+    Atom names come from the AF2 atom14 tables; masked and absent atoms are
+    skipped (the reference export, prot_converter.py:292-385)."""
+    from trx2dy_torch.models.constants import (
+        atom14_names, restype_3, restype_order,
+    )
+
+    L = len(seq)
+    atom14 = np.clip(np.nan_to_num(np.asarray(atom14, float)), -999.0, 999.0)
+    if atom14_mask is None:
+        atom14_mask = np.ones((L, 14))
+    lines = []
+    serial = 0
+    for i in range(L):
+        ridx = restype_order.get(seq[i], 20)
+        res3 = restype_3[ridx] if ridx < 20 else "UNK"
+        for a in range(14):
+            name = str(atom14_names[ridx, a])
+            if not name or atom14_mask[i, a] == 0:
+                continue
+            serial += 1
+            b = 0.0 if plddt is None else float(100.0 * plddt[i])
+            x, y, z = atom14[i, a]
+            lines.append(
+                f"ATOM  {serial:5d}  {name:<3s} {res3:>3s} {chain}"
+                f"{i + 1:4d}    {x:8.3f}{y:8.3f}{z:8.3f}"
+                f"{1.00:6.2f}{b:6.2f}          {name[0]:>2s}  ")
+    lines += ["TER", "END"]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")

@@ -1,9 +1,8 @@
-"""The restrained-minimization folder: npz histograms -> backbone decoys.
+"""The restrained-minimization folder: npz histograms -> decoys.
 
-Port of the non-relax part of trx2dy/physics/folder.py (the reference's
-PyRosetta pipeline, folding/folding.py:32-281). The whole decoy ensemble
-minimises as one batch. Protocol, as the JAX package's staged driver runs
-it with fastrelax=False:
+Port of trx2dy/physics/folder.py (the reference's PyRosetta pipeline,
+folding/folding.py:32-281). The whole decoy ensemble minimises as one
+batch. Protocol, as the JAX package's staged driver runs it:
 
   1. random Ramachandran-basin torsions, omega = 180 deg
      (utils_ros.py:656-696);
@@ -11,15 +10,25 @@ it with fastrelax=False:
      whose vdw score is >= 10 (utils_ros.py:699-703);
   3. per restraint stage (mode 2: one, 1 <= |i-j| < L): 3 x L-BFGS on the
      centroid score function, one pass on the cartesian-flavour weights,
-     then clash removal on scorefxn1 (folding.py:105,168-170).
+     then clash removal on scorefxn1 (folding.py:105,168-170);
+  4. with fastrelax (the default), the FastRelax substitute
+     (folding.py:189-268): relax round 1 on the pcut 0.15 restraints, the
+     round-1 cartesian block (per-atom displacements, cartmin.py) projected
+     back to torsions, relax round 2 on the pcut 0.30 restraints; each
+     round ramps the repulsive and restraint weights over its schedule,
+     RELAX_REPEATS times, keeping the best full-weight pose per repeat
+     (accept_to_best); glycine pairs are excluded (nogly);
+  5. after energy gating (oversample), the cartesian refinement of the
+     kept decoys against the pcut 0.30 restraints (cart_refine).
 
-Every stage runs in chunks of STAGE_CHUNK iterations; between chunks the
-converged lanes of a large batch are parked and the active ones repacked
-into a smaller bucket. The energy is the compacted pair-list path, whose
-restraint splines run through the CUDA kernel's pair entry.
+Step 4's cartesian block and step 5 run for the no-idp and idp restraint
+modes, as in JAX. Every stage runs in chunks of STAGE_CHUNK iterations;
+between chunks the converged lanes of a large batch are parked and the
+active ones repacked into a smaller bucket. The energy is the compacted
+pair-list path, whose restraint splines run through the CUDA kernel's pair
+entry, one launch per energy evaluation, in every stage above.
 
-FastRelax, the cartesian refinement, the af2/idp/gpcr restraint modes and
-chain folding come with later slices of the port. JAX's single-program
+Chain folding comes with a later slice of the port. JAX's single-program
 driver (staged_execution=False, _protocol_jit) is a compile strategy of
 XLA; the port has one protocol driver.
 """
@@ -33,9 +42,13 @@ import torch
 
 from trx2dy_torch.device import resolve_device
 from trx2dy_torch.geometry.nerf import build_backbone
+from trx2dy_torch.geometry.transforms import backbone_torsions, dihedral
+from trx2dy_torch.physics.cartmin import (
+    cartesian_refine_compact, cartesian_relax_block,
+)
 from trx2dy_torch.physics.compact import compact_restraints, compact_to
 from trx2dy_torch.physics.energy import (
-    SCOREFXN1, SCOREFXN_CART, SCOREFXN_CENT, SCOREFXN_VDW,
+    SCOREFXN1, SCOREFXN_CART, SCOREFXN_CENT, SCOREFXN_VDW, EnergyWeights,
     batched_energy_weighted_compact, weights_to_vec,
 )
 from trx2dy_torch.physics.minimize import (
@@ -43,8 +56,31 @@ from trx2dy_torch.physics.minimize import (
 )
 from trx2dy_torch.physics.restraints import (
     FoldParams, RestraintMasks, RestraintSet, add_disulfide_restraints,
-    compile_restraints, disulfide_pairs, restraint_masks,
+    compile_restraints, compile_restraints_af2, compile_restraints_gpcr,
+    compile_restraints_idp, disulfide_pairs, restraint_masks,
 )
+
+# FastRelax's score function: ref2015_cart with constraint weights 5/1/1
+# (folding.py:200-204); the torsion-space substitute keeps the centroid
+# terms
+SCOREFXN_RELAX = EnergyWeights(hbond_sr=3.0, hbond_lr=3.0, rama=1.0,
+                               omega=0.5, vdw=0.5,
+                               atom_pair=5.0, dihedral=1.0, angle=1.0)
+
+# FastRelax ramp schedules (data/1relax_round1.txt, 2relax_round2.txt):
+# each (fa_rep_scale, cst_scale, iterations) stage scales the repulsive
+# term and every restraint term, then minimises. Round 1's
+# `switch:cartesian repeat 1` block (1relax_round1.txt:10-16) is
+# CART_SCHEDULE_R1, run in atom space between the two rounds; round 2's
+# cartesian channel is the final cartesian refinement.
+RELAX_SCHEDULE_R1 = ((0.02, 1.0, 100), (0.25, 0.5, 100),
+                     (0.55, 0.1, 100), (1.0, 0.1, 100))
+RELAX_SCHEDULE_R2 = ((0.02, 1.0, 50), (0.25, 0.5, 50),
+                     (0.55, 0.1, 100), (1.0, 0.1, 200))
+CART_SCHEDULE_R1 = ((0.02, 1.0, 50), (0.25, 0.5, 50),
+                    (0.55, 0.1, 100), (1.0, 0.1, 200))
+RELAX_REPEATS = 2
+CART_REFINE_ITERS = 200     # the final cartesian refinement's budget
 
 CLASH_SCORE_CUTOFF = 10.0   # remove_clash threshold (utils_ros.py:699-703)
 CLASH_ROUNDS = 5
@@ -69,7 +105,43 @@ _BASIN_PSI = np.deg2rad([153.0, 145.0, 117.0, -14.0, -41.0, 39.0])
 _BASIN_P = np.array([0.135, 0.155, 0.073, 0.122, 0.497, 0.018])
 
 
+def _ramped_relax_weights(fa_scale: float, cst_scale: float) -> EnergyWeights:
+    w = SCOREFXN_RELAX
+    return w._replace(vdw=w.vdw * fa_scale, atom_pair=w.atom_pair * cst_scale,
+                      dihedral=w.dihedral * cst_scale,
+                      angle=w.angle * cst_scale)
+
+
+def _cart_r1_stages():
+    """CART_SCHEDULE_R1 as ((w_vec, iters), ...) for the cartesian block."""
+    return tuple((weights_to_vec(_ramped_relax_weights(fa, cst)), iters)
+                 for fa, cst, iters in CART_SCHEDULE_R1)
+
+
+def _project_torsions(x, atoms):
+    """(B, 3L) torsions re-extracted from (cartesian-displaced) atoms.
+
+    The projection back onto the NeRF manifold before relax round 2: the
+    slots build_backbone does not use keep their incoming values (phi[0],
+    omega[-1]), and psi[-1] comes from the carbonyl O, which NeRF places
+    anti to the next N at torsion psi + pi about N-CA-C."""
+    B = x.shape[0]
+    t0 = x.reshape(B, 3, -1)
+    n, ca, c, o = (atoms[k] for k in ("N", "CA", "C", "O"))
+    (phi, psi, omg), _ = backbone_torsions(n, ca, c)
+    psi_last = dihedral(n[:, -1], ca[:, -1], c[:, -1], o[:, -1]) - np.pi
+    phi = torch.cat([t0[:, 0, :1], phi[:, 1:]], dim=-1)
+    psi = torch.cat([psi[:, :-1], psi_last[:, None]], dim=-1)
+    omg = torch.cat([omg[:, :-1], t0[:, 2, -1:]], dim=-1)
+    return torch.stack([phi, psi, omg], dim=1).reshape(B, -1)
+
+
 class FoldResult(NamedTuple):
+    """Result of a fold. `atoms` is authoritative: after the cartesian
+    refinement (fastrelax and cart_refine) it holds the refined
+    coordinates, off the ideal NeRF manifold, while `torsions` and `energy`
+    are the minimiser's state and centroid score from before it. Pack
+    sidechains onto `atoms` (sidechain.pack_ensemble(backbone=...))."""
     torsions: torch.Tensor   # (B, 3, L) final [phi; psi; omega]
     energy: torch.Tensor     # (B,) final centroid score
     atoms: dict              # atom -> (B, L, 3)
@@ -145,11 +217,16 @@ def _bucket_size(n: int) -> int:
 
 
 def _protocol_staged(x0, stages, max_iter: int, dist_on_ca: bool = False,
-                     res_mask=None, stage_log: Optional[list] = None):
-    """The centroid protocol over chunked L-BFGS stages.
+                     res_mask=None, stage_log: Optional[list] = None,
+                     relax=None, cart_r1: bool = False):
+    """The protocol over chunked L-BFGS stages: centroid stages, then with
+    relax = (relax1, relax2) the two FastRelax rounds, with the round-1
+    cartesian block between them when cart_r1.
 
-    stages: per-stage compacted pair lists on the device (compact_to).
-    stage_log, if given, receives (label, iterations, wall_s) per stage."""
+    stages, relax1, relax2: compacted pair lists on the device
+    (compact_to), each built once per fold. stage_log, if given, receives
+    (label, iterations, wall_s) per stage. Returns (x, final centroid
+    energies)."""
     dev = x0.device
     B = x0.shape[0]
     no_freeze = torch.zeros((B,), dtype=torch.bool, device=dev)
@@ -220,6 +297,40 @@ def _protocol_staged(x0, stages, max_iter: int, dist_on_ca: bool = False,
             x = stage(x, cr, w_cent, label="cent")
         x = stage(x, cr, w_cart, label="cart")
         x = remove_clash(x, w_sf1, cr, max_iter, "clash")
+
+    if relax is not None:
+        relax1, relax2 = relax
+        w_relax = wvec(SCOREFXN_RELAX)
+
+        def full_f(xx, cr):
+            # full-weight relax score, one value-and-gradient evaluation
+            return lbfgs_init(energy(cr, w_relax), xx, freeze=~no_freeze).f
+
+        def relax_round(x, cr, schedule, label):
+            best_x, best_f = x, full_f(x, cr)
+            for _ in range(RELAX_REPEATS):
+                for fa, cst, iters in schedule:
+                    x = stage(x, cr, wvec(_ramped_relax_weights(fa, cst)),
+                              iters=iters, label=label)
+                # accept_to_best, on the device: no host sync
+                f = full_f(x, cr)
+                best_x = torch.where((f < best_f)[:, None], x, best_x)
+                best_f = torch.minimum(f, best_f)
+            return best_x
+
+        x = relax_round(x, relax1, RELAX_SCHEDULE_R1, "relax1")
+        if cart_r1:
+            # round 1's cartesian repeat on the same pcut 0.15 tables,
+            # projected back to torsions before round 2's restraint set
+            t = x.reshape(B, 3, -1)
+            with torch.no_grad():
+                atoms = build_backbone(t[:, 0], t[:, 1], t[:, 2])
+            atoms, _ = cartesian_relax_block(
+                atoms, relax1, _cart_r1_stages(),
+                weights_to_vec(SCOREFXN_RELAX), dist_on_ca=dist_on_ca,
+                res_mask=res_mask, stage_log=stage_log)
+            x = _project_torsions(x, atoms)
+        x = relax_round(x, relax2, RELAX_SCHEDULE_R2, "relax2")
     f = lbfgs_init(energy(stages[-1], w_cent), x, freeze=~no_freeze).f
     return x, f
 
@@ -230,28 +341,24 @@ def fold_ensemble(npz: dict, seq: str,
                   fastrelax: bool = True, pcut: Optional[float] = None,
                   params: FoldParams = FoldParams(), max_iter: int = 1000,
                   x0=None, rst_mode: str = "no-idp",
+                  known_npz: Optional[dict] = None,
                   staged_execution: bool = True, oversample: float = 0.0,
                   pad_to: Optional[int] = None, detect_disulf: bool = True,
-                  device="cuda",
+                  cart_refine: bool = True, device="cuda",
                   stage_log: Optional[list] = None) -> FoldResult:
     """Fold an ensemble of decoys from predicted geometry histograms.
 
-    npz: 'dist' (+ 'omega'/'theta'/'phi' with use_orient); seq: one-letter
+    npz: 'dist' (+ 'omega'/'theta'/'phi' with use_orient; 'idr' for the
+    idp and gpcr modes and mode 3; 'bins' for af2); seq: one-letter
     sequence; generator: seeds the torsion init (x0 None); x0: optional
-    (B, 3, L) or (B, 3L) start torsions; oversample: fold
+    (B, 3, L) or (B, 3L) start torsions; rst_mode: no-idp, af2 (CA-CA
+    distograms, no orientation), idp or gpcr (with known_npz, the known
+    structures' geometry maps); oversample: fold
     ceil(n_decoys (1 + oversample)) decoys and keep the n_decoys of lowest
-    energy; pad_to: pad to this length with inert residues. Returns
-    torsions, final centroid energies and atoms, all on `device`.
-    fastrelax=True and rst_mode other than "no-idp" raise
-    NotImplementedError until a later slice of the port."""
-    if fastrelax:
-        raise NotImplementedError(
-            "fastrelax is not ported yet (slice 3 of the PyTorch port): "
-            "fold with fastrelax=False (CLI: --no-fastrelax)")
-    if rst_mode != "no-idp":
-        raise NotImplementedError(
-            f"rst_mode {rst_mode!r} is not ported yet (slice 3 of the "
-            "PyTorch port); use 'no-idp'")
+    energy; pad_to: pad to this length with inert residues; cart_refine:
+    with fastrelax, the round-1 cartesian block and the final cartesian
+    refinement (no-idp and idp). Returns torsions, final centroid energies
+    and atoms, all on `device` (see FoldResult)."""
     if not staged_execution:
         raise NotImplementedError(
             "staged_execution=False selects the JAX package's single-program "
@@ -265,19 +372,52 @@ def fold_ensemble(npz: dict, seq: str,
     L_true = L
     res_mask = None
     if pad_to is not None and pad_to > L:
+        if known_npz is not None:
+            # known_npz holds real-valued (N, L, L) maps, not histograms:
+            # zero padding would bin fake 0-distance contacts
+            raise ValueError(
+                "pad_to (length bucketing) is not supported together with "
+                "known_npz / rst_mode='gpcr'; fold this target unbucketed")
         npz = pad_npz(npz, L, pad_to)
         seq = seq + "A" * (pad_to - L)
         res_mask = torch.arange(pad_to, device=dev) < L
         L = pad_to
     pcut = params.PCUT if pcut is None else pcut
-    rst = compile_restraints(npz, params, use_orient=use_orient)
-    if detect_disulf:
+    dist_on_ca = rst_mode == "af2"
+    if rst_mode == "no-idp":
+        rst = compile_restraints(npz, params, use_orient=use_orient)
+    elif rst_mode == "af2":
+        if use_orient:
+            raise ValueError("af2 restraints do not support --orient "
+                             "(utils_ros.py:150)")
+        rst = compile_restraints_af2(npz, params)
+    elif rst_mode == "idp":
+        rst = compile_restraints_idp(npz, params, use_orient=use_orient)
+    elif rst_mode == "gpcr":
+        if known_npz is None:
+            raise ValueError("rst_mode='gpcr' requires known_npz "
+                             "(folding CLI -KNOWN)")
+        rst = compile_restraints_gpcr(npz, known_npz, params,
+                                      use_orient=use_orient)
+    else:
+        raise ValueError(f"unknown rst_mode {rst_mode!r}")
+    if detect_disulf and rst_mode in ("no-idp", "idp"):
         ss = disulfide_pairs(npz["dist"], seq)
         if len(ss):
             rst = add_disulfide_restraints(rst, ss)
-    stages = [compact_to(compact_restraints(rst, m), L, dev)
+
+    def device_pairs(masks):
+        return compact_to(compact_restraints(rst, masks), L, dev)
+
+    stages = [device_pairs(m)
               for m in _stage_masks_centroid(rst, seq, mode, pcut,
                                              idr=npz.get("idr"))]
+    relax = None
+    if fastrelax:
+        relax = tuple(device_pairs(restraint_masks(rst, seq, 1, L, pcut=pc,
+                                                   nogly=True))
+                      for pc in (0.15, 0.30))
+    cart = cart_refine and fastrelax and rst_mode in ("no-idp", "idp")
 
     n_fold = n_decoys
     if x0 is None:
@@ -288,14 +428,22 @@ def fold_ensemble(npz: dict, seq: str,
                          dtype=torch.float32).to(dev)
     x0 = x0.reshape(x0.shape[0], 3 * L)
 
-    x, f = _protocol_staged(x0, stages, max_iter, res_mask=res_mask,
-                            stage_log=stage_log)
+    x, f = _protocol_staged(x0, stages, max_iter, dist_on_ca=dist_on_ca,
+                            res_mask=res_mask, stage_log=stage_log,
+                            relax=relax, cart_r1=cart)
     if n_fold > n_decoys:
         keep = torch.argsort(f)[:n_decoys]
         x, f = x[keep], f[keep]
 
     t = x.reshape(-1, 3, L)
-    atoms = build_backbone(t[:, 0], t[:, 1], t[:, 2])
+    with torch.no_grad():
+        atoms = build_backbone(t[:, 0], t[:, 1], t[:, 2])
+    if cart:
+        # the reference's cartesian channel (folding.py:169,234) on the
+        # kept lanes, against the pcut 0.30 tables of relax round 2
+        atoms, _ = cartesian_refine_compact(
+            atoms, relax[1], SCOREFXN_RELAX, max_iter=CART_REFINE_ITERS,
+            res_mask=res_mask, stage_log=stage_log)
     if L_true < L:
         atoms = {k: v[:, :L_true] for k, v in atoms.items()}
     return FoldResult(torsions=t[:, :, :L_true], energy=f, atoms=atoms)

@@ -14,6 +14,7 @@ iteration. STATS counts both (evals) and the syncs.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -25,14 +26,33 @@ _MAX_BACKTRACK = 25   # max step halvings per iteration
 
 class _Stats:
     """Energy evaluations (value-only and value-and-gradient calls of an
-    objective) and host syncs of the fold, since the last reset()."""
+    objective) and host syncs of the fold, since the last reset().
+    Evaluations of an objective with no restraint term (the idealize pass,
+    sidechain packing), which launch no spline kernel, count in free_evals
+    instead of evals: the caller marks them with restraint_free()."""
 
     def __init__(self):
+        self._free = False
         self.reset()
 
     def reset(self):
         self.evals = 0
+        self.free_evals = 0
         self.syncs = 0
+
+    def count_eval(self):
+        if self._free:
+            self.free_evals += 1
+        else:
+            self.evals += 1
+
+    @contextlib.contextmanager
+    def restraint_free(self):
+        prev, self._free = self._free, True
+        try:
+            yield
+        finally:
+            self._free = prev
 
 
 STATS = _Stats()
@@ -76,7 +96,7 @@ class LBFGSState(NamedTuple):
 
 
 def _value(fun: Callable, x: torch.Tensor) -> torch.Tensor:
-    STATS.evals += 1
+    STATS.count_eval()
     with torch.no_grad():
         return fun(x)
 
@@ -87,7 +107,7 @@ def _value_and_grad_batch(fun: Callable) -> Callable:
     Decoys are independent, so the gradient of the batch sum is the
     per-decoy gradient: one backward pass for the whole ensemble."""
     def vg(x):
-        STATS.evals += 1
+        STATS.count_eval()
         with torch.enable_grad():
             xg = x.detach().requires_grad_(True)
             vals = fun(xg)

@@ -14,8 +14,10 @@ package does, and fitted as natural cubic splines in one product:
         pad [flip(y[1:3]), y[1:], flip(y[-2:])]
 
 Selection (probability cutoffs, sequence separation, glycine exclusion) is
-a set of boolean (L, L) host masks (restraint_masks). The af2, idp and gpcr
-restraint modes come with a later slice of the port.
+a set of boolean (L, L) host masks (restraint_masks). The other restraint
+modes: af2 (AF2 CA-CA distograms, utils_ros.py:148-194), idp (mode-relative
+backgrounds on disordered pairs, :196-373) and gpcr (predicted tables
+flattened where known structures agree, :375-654).
 """
 from __future__ import annotations
 
@@ -228,3 +230,209 @@ def restraint_energy(rst: RestraintSet, masks: RestraintMasks,
     e = e + w_dihedral * term(rst.omega, omega, masks.omega)
     e = e + w_dihedral * term(rst.theta, theta, masks.theta)
     return e + w_angle * term(rst.phi, phi, masks.phi)
+
+
+def compile_restraints_af2(npz: dict, params: FoldParams = FoldParams()
+                           ) -> RestraintSet:
+    """AF2-distogram restraints (-r af2, utils_ros.py:148-194 gen_rst_af2):
+    'dist' (L, L, 64) probabilities over 'bins' bin centers -> 60-knot
+    distance tables, acting on CA-CA (the folder evaluates them on CA);
+    no orientation restraints, as in the reference. Quirks kept: the
+    background uses only the last bin's (bins/DCUT)^ALPHA (utils_ros.py:172)
+    and the cutoff is 0.0025, applied as a shift of the probability so that
+    restraint_masks' pcut comparison keeps working."""
+    p = params
+    dist = np.asarray(npz["dist"], dtype=np.float32)
+    af_bins = np.asarray(npz["bins"], dtype=np.float64)
+    L = dist.shape[0]
+    bins = af_bins[5:-1]
+    prob = dist[:, :, 6:-1].sum(-1)
+    bkgr_last = float((bins[-1] / p.DCUT) ** p.ALPHA)
+    attr = (-np.log((dist[:, :, 6:-1] + p.MEFF)
+                    / (dist[:, :, -2][:, :, None] * bkgr_last + 1e-6))
+            + p.EBASE)
+    repul = np.maximum(attr[:, :, 0], 0.0)[:, :, None] + np.asarray(p.EREP)
+    ydist = np.concatenate([repul, attr], axis=-1).astype(np.float32)
+    knots = np.concatenate([[0.0, 2.325, 3.575], bins])
+
+    zeros28 = np.zeros((L, L, 28), np.float32)
+    zeros16 = np.zeros((L, L, 16), np.float32)
+    neg = np.full((L, L), -1.0, np.float32)
+    return RestraintSet(
+        dist=fit_natural_cubic(knots, ydist),
+        dist_prob=prob + (0.05 - 0.0025),
+        omega=fit_natural_cubic(torsion_knots(p), zeros28), omega_prob=neg,
+        theta=fit_natural_cubic(torsion_knots(p), zeros28), theta_prob=neg,
+        phi=fit_natural_cubic(planar_knots(p), zeros16), phi_prob=neg,
+    )
+
+
+def _idr_pairs(npz: dict) -> np.ndarray:
+    """The (L, L) bool disorder pair mask of npz['idr'] ((L,) residue
+    flags pair up by OR)."""
+    idr = np.asarray(npz["idr"], dtype=bool)
+    if idr.ndim == 1:
+        idr = idr[:, None] | idr[None, :]
+    return idr
+
+
+def compile_restraints_idp(npz: dict, params: FoldParams = FoldParams(),
+                           use_orient: bool = True) -> RestraintSet:
+    """IDR-aware restraints (-r idp, utils_ros.py:196-373 gen_idp_rst): on
+    disordered pairs (npz['idr']) the -log background is relative to the
+    mode bin (distance background scaled by (x / x_mode)^ALPHA, angles by
+    p_max) instead of the last bin. Tables are blended per pair; the
+    activation probabilities are the standard ones."""
+    p = params
+    std = compile_restraints(npz, params, use_orient=use_orient)
+    idr = _idr_pairs(npz)
+    dist = np.asarray(npz["dist"], dtype=np.float32)
+    bins = 4.25 + p.DSTEP * np.arange(32)
+
+    mode_bin = np.argmax(dist[:, :, 5:], axis=-1)
+    idr_bkgr = (bins[None, None, :] / bins[mode_bin][:, :, None]) ** p.ALPHA
+    idr_attr = (-np.log((dist[:, :, 5:] + p.MEFF)
+                        / (dist[:, :, 5:].max(-1)[:, :, None] * idr_bkgr
+                           + 1e-6)) + p.EBASE)
+    repul = np.asarray(std.dist.y)[:, :, :3]
+    ydist_idr = np.concatenate([repul, idr_attr], axis=-1).astype(np.float32)
+    ydist = np.where(idr[:, :, None], ydist_idr, np.asarray(std.dist.y))
+    out = std._replace(dist=fit_natural_cubic(dist_knots(p), ydist))
+
+    if use_orient:
+        def idr_torsion(t):
+            y = -np.log((t + p.MEFF) / (t.max(-1) + p.MEFF)[:, :, None])
+            return np.concatenate([y[:, :, -2:], y[:, :, 1:], y[:, :, 1:3]],
+                                  axis=-1).astype(np.float32)
+
+        for key in ("omega", "theta"):
+            t = np.asarray(npz[key], dtype=np.float32)
+            y = np.where(idr[:, :, None], idr_torsion(t),
+                         np.asarray(getattr(std, key).y))
+            out = out._replace(**{key: fit_natural_cubic(torsion_knots(p),
+                                                         y)})
+        phi = np.asarray(npz["phi"], dtype=np.float32)
+        yraw = -np.log((phi + p.MEFF) / (phi.max(-1) + p.MEFF)[:, :, None])
+        yidr = np.concatenate([np.flip(yraw[:, :, 1:3], -1), yraw[:, :, 1:],
+                               np.flip(yraw[:, :, -2:], -1)],
+                              axis=-1).astype(np.float32)
+        y = np.where(idr[:, :, None], yidr, np.asarray(std.phi.y))
+        out = out._replace(phi=fit_natural_cubic(planar_knots(p), y))
+    return out
+
+
+def _gaussian_vote(onehot_stack: np.ndarray) -> np.ndarray:
+    """get_sample (utils_ros.py:458-483): N known-structure one-hot
+    histograms (N, L, L, C) -> a soft (L, L, C) histogram (divided by N),
+    each realized bin voting a Gaussian whose width follows its vote count
+    (< N/3 -> 1.5, > 2N/3 -> 0.5, else 1.0)."""
+    N, _, _, C = onehot_stack.shape
+    counts = onehot_stack.sum(0)                       # (L, L, C)
+    std = np.where(counts < N / 3.0, 1.5,
+                   np.where(counts > 2.0 * N / 3.0, 0.5, 1.0))
+    x = np.arange(C, dtype=np.float64)
+    out = np.zeros(counts.shape, np.float64)
+    for k in range(C):
+        c_k = counts[:, :, k]
+        if not c_k.any():
+            continue
+        s = std[:, :, k][..., None]
+        gauss = (np.exp(-((x[None, None, :] - k) ** 2) / (2.0 * s ** 2))
+                 / np.sqrt(2.0 * np.pi * s ** 2))
+        out += c_k[..., None] * gauss
+    return (out / N).astype(np.float32)
+
+
+def _linear_blend(test: np.ndarray, cate: np.ndarray, bins: np.ndarray,
+                  mask: np.ndarray, rg: int = 5) -> np.ndarray:
+    """ling_sumlt (utils_ros.py:375-394), vectorized: on masked pairs,
+    replace the predicted table's values at the rg lowest-energy bins of
+    the known-structure table by the line between the predicted values at
+    the bracketing bins."""
+    order = np.argsort(cate, axis=-1)[..., :rg]        # (L, L, rg)
+    lo = order.min(-1)
+    hi = order.max(-1)
+    low = np.where(lo - 1 < 0, lo, lo - 1)
+    high = np.where(hi + 1 >= len(bins), hi, hi + 1)
+    t_low = np.take_along_axis(test, low[..., None], -1)[..., 0]
+    t_high = np.take_along_axis(test, high[..., None], -1)[..., 0]
+    denom = bins[low] - bins[high]
+    denom = np.where(np.abs(denom) < 1e-9, 1e-9, denom)
+    interp = ((bins[order] - bins[high][..., None]) / denom[..., None]
+              * (t_low - t_high)[..., None] + t_high[..., None])
+    out = test.copy()
+    ii, jj = np.where(mask)
+    out[ii[:, None], jj[:, None], order[ii, jj]] = interp[ii, jj]
+    return out
+
+
+def compile_restraints_gpcr(npz: dict, known_npz: dict,
+                            params: FoldParams = FoldParams(),
+                            use_orient: bool = True) -> RestraintSet:
+    """GPCR two-conformation restraints (-r gpcr, utils_ros.py:484-654
+    gen_gpcr_rst): the predicted tables, linearly flattened on the
+    disordered pairs (npz['idr']) over the bins the known structures
+    realize, so minimisation can reach either conformation.
+
+    known_npz: real-valued maps of N known structures, 'dist' (N, L, L)
+    and with use_orient 'omega', 'theta_asym', 'phi_asym' (N, L, L) (the
+    reference's key names, utils_ros.py:488)."""
+    from trx2dy_torch.geometry.binning import bin_geometry_maps
+
+    p = params
+    std_set = compile_restraints(npz, params, use_orient=use_orient)
+    idr = _idr_pairs(npz)
+    known_dist = np.asarray(known_npz["dist"], np.float32)
+    N = known_dist.shape[0]
+
+    def onehots(key_bin):
+        stack = []
+        for n in range(N):
+            def t(key):
+                return torch.as_tensor(np.asarray(known_npz[key][n],
+                                                  np.float32))
+            if use_orient:
+                h = bin_geometry_maps(torch.as_tensor(known_dist[n]),
+                                      t("omega"), t("theta_asym"),
+                                      t("phi_asym"), angle=True)
+            else:
+                h = bin_geometry_maps(torch.as_tensor(known_dist[n]),
+                                      angle=False)
+            stack.append(h[key_bin].numpy())
+        return np.stack(stack)
+
+    bins_d = dist_knots(p)
+    cate_dist = _gaussian_vote(onehots("dist"))
+    bkgr = (bins_d[3:] / p.DCUT) ** p.ALPHA
+    attr = (-np.log((cate_dist[:, :, 5:] + p.MEFF)
+                    / (cate_dist[:, :, -1][:, :, None] * bkgr + 1e-6))
+            + p.EBASE)
+    repul = np.maximum(attr[:, :, 0], 0.0)[:, :, None] + np.asarray(p.EREP)
+    cate_table = np.concatenate([repul, attr], -1).astype(np.float32)
+    ydist = _linear_blend(np.asarray(std_set.dist.y), cate_table, bins_d,
+                          idr)
+    out = std_set._replace(dist=fit_natural_cubic(bins_d, ydist))
+
+    if use_orient:
+        def cate_torsion(key_bin):
+            cate = _gaussian_vote(onehots(key_bin))
+            y = -np.log((cate + p.MEFF)
+                        / (cate[:, :, -1] + p.MEFF)[:, :, None])
+            return np.concatenate([y[:, :, -2:], y[:, :, 1:], y[:, :, 1:3]],
+                                  -1).astype(np.float32)
+
+        tk = torsion_knots(p)
+        for key in ("omega", "theta"):
+            y = _linear_blend(np.asarray(getattr(out, key).y),
+                              cate_torsion(key), tk, idr)
+            out = out._replace(**{key: fit_natural_cubic(tk, y)})
+
+        cate = _gaussian_vote(onehots("phi"))
+        yraw = -np.log((cate + p.MEFF) / (cate[:, :, -1] + p.MEFF)[:, :, None])
+        ycate = np.concatenate([np.flip(yraw[:, :, 1:3], -1), yraw[:, :, 1:],
+                                np.flip(yraw[:, :, -2:], -1)],
+                               -1).astype(np.float32)
+        pk = planar_knots(p)
+        y = _linear_blend(np.asarray(out.phi.y), ycate, pk, idr)
+        out = out._replace(phi=fit_natural_cubic(pk, y))
+    return out
