@@ -16,9 +16,12 @@ Phases; any failure exits non-zero and no phase is skipped:
      the card's data sheet gives. Triangle attention row- and column-wise
      (held to TRI_ATTN_TOL, with the bias as the trunk lays it out and as
      an (L, L, H) array); the spline restraint energy's dense entry at
-     (B, L) = (50, 150) and (3, 37) and its fused pair entry, all four knot
+     (B, L) = (50, 150) and (3, 37), its fused pair entry, all four knot
      grids in one launch, at the bucketed pair counts of a full L=150 mask
-     with B=50, with queries below, on and above the knots;
+     with B=50, and its lanes entry (per-lane tables from the sampler's
+     table compiler) at the bucketed pair counts of a full union with
+     C=32 lanes at L=150 and at phase 6's L=64, with queries below, on
+     and above the knots;
   4. the main path, first half: the geometry stage (a3m -> features ->
      Predictor2D at full width, depth 12, random seeded weights ->
      pred_npz for both models) answers three requests at L = 64, 256, 400
@@ -48,9 +51,24 @@ Phases; any failure exits non-zero and no phase is skipped:
      evaluation must be bit-identical (the fold is deterministic). One
      L-BFGS chunk each of the centroid, relax and cartesian energies is
      profiled;
-  6. a `kernels` JSON line, then {"ok": true, "device": {...}} last.
+  6. the whole pipeline, run_single through its CLI
+     (python -m trx2dy_torch.cli.run_inference with --fasta, --msa,
+     --model_dir, --save_dir, --name and --Nmax RUN_NMAX, every other flag
+     at its default: both models combined, 8 chains a model, a 32-lane
+     bucket, FastRelax, full-atom output) at L=64 on phase 4's a3m and
+     weights. Checked: 2 x 10 initial decoys and the chain decoys renamed
+     conf_1_* / conf_2_* with side chains, tmp_npz gone, traces.jsonl's
+     phase rows, one lanes-entry launch per spline-counted evaluation; on
+     a chain step's tables (the predicted histograms dampened by written
+     initial decoys, compiled as the driver compiles them) the first
+     energy and gradient held to the plain spline path (FOLD_START_TOL), a
+     repeated evaluation bit-identical, the dampened histograms normalised
+     on the dampened pairs (DAMPEN_NORM_TOL). The initial fold's and each
+     step's wall (fold, emit, measure), decoys per minute, evaluations, ms
+     per evaluation, host syncs per step and peak memory are printed;
+  7. a `kernels` JSON line, then {"ok": true, "device": {...}} last.
 
-Launch counts are set to 0 just before each request of phases 4 and 5 and
+Launch counts are set to 0 just before each request of phases 4 to 6 and
 read just after it; a kernel of a path that did not launch fails the run.
 
 It exits non-zero, printing no result, where CUDA is unavailable or the
@@ -60,6 +78,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -89,6 +108,9 @@ SPLINE_FLOPS = 40          # per active query: search, cubic, derivative
 GRIDS = ("dist", "omega", "theta", "phi")
 FOLD_L, FOLD_DECOYS, FOLD_ITERS = 150, 50, 1000   # headline request (a)
 CLI_L, CLI_DECOYS = 64, 8                          # requests (b), (b')
+CHAIN_LANES = 32           # the sampler's lane bucket at its defaults
+RUN_NMAX = 2               # phase 6's depth (decoys per chain model)
+DAMPEN_NORM_TOL = 1e-4     # dampened bins' sum on dampened pairs
 FOLD_START_TOL = 1e-4      # first energy and gradient, kernel vs plain path
 # final energy medians, kernel vs plain path. The fold is deterministic,
 # but the two paths' trajectories diverge from rounding, and which decoys
@@ -426,7 +448,93 @@ def spline_kernel_phase(dev, peaks):
         else "operations"
     print("spline " + json.dumps(row), flush=True)
     rows.append(row)
+    for L in (SPLINE_SHAPES[0][1], CLI_L):     # the smoke's L and phase 6's
+        rows.append(spline_lanes_check(dev, peaks, on, compare, L))
     return rows
+
+
+def spline_lanes_bound_ms(P: int, C: int, n_active: int, K: int,
+                          peaks) -> tuple[float, str]:
+    """Least time for one term of the lanes entry: each (pair, lane)'s
+    query and activity read and derivative written once, and for each
+    active one the four table values of its interval (what this data
+    needs of the (P, C, K) tables); knots and sums; SPLINE_FLOPS float32
+    operations per active query."""
+    nbytes = 9.0 * P * C + 16.0 * n_active + 4.0 * K + 4.0 * C
+    t_ops = SPLINE_FLOPS * n_active / peaks[0]
+    t_bytes = nbytes / peaks[1]
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops > t_bytes \
+        else "bytes"
+
+
+def spline_lanes_check(dev, peaks, on, compare, L: int) -> dict:
+    """The lanes entry against a float64 plain version: per-lane tables
+    of C=CHAIN_LANES lanes from the sampler's table compiler over random
+    histograms of length L (a full union, the bucketed pair counts), the
+    relax round-2 activity thinned at random per lane, all four grids in
+    one launch."""
+    from trx2dy_torch.ops.spline_energy import (
+        SplineLanes, _lanes_fwd, spline_energy_lanes, spline_lanes_plain,
+    )
+    from trx2dy_torch.physics.compact import _bucket
+    from trx2dy_torch.physics.spline import SplineTable, \
+        evaluate_spline_with_deriv
+    from trx2dy_torch.physics.tablegen import union_compiler
+
+    C, U = CHAIN_LANES, 8
+    hists = [random_histograms(L, seed=L + u) for u in range(U)]
+    pool = {k: on(np.stack([h[k] for h in hists])) for k in GRIDS}
+    comp = union_compiler("A" * L, device=dev)
+    counts = comp.count(pool)[0].tolist()
+    P = tuple(_bucket(int(c)) for c in counts)
+    ur, _, _, r2 = comp.compile(pool, np.arange(C) % U, P)
+    rng = np.random.default_rng(5)
+    terms, qs, active = [], [], []
+    for t, a in zip(ur, r2):
+        act = (a & on(rng.random(tuple(a.shape)) < 0.8)).contiguous()
+        terms.append((t.y, t.m, t.x, act))
+        x = t.x.cpu().numpy()
+        qs.append(on(edge_queries(x, (t.y.shape[0], C), seed=len(x) + 7,
+                                  pair_major=True)))
+        active.append(int(act.sum()))
+    tables = SplineLanes(terms)
+    before = spline_energy_lanes.launches
+    sums, derivs = _lanes_fwd(tables, qs)
+    torch.cuda.synchronize()
+    check(spline_energy_lanes.launches == before + 1,
+          "spline lanes: launch counter did not advance")
+    terms64 = [(y.double(), m.double(), x.double(), act)
+               for y, m, x, act in terms]
+    ref_sums, ref_derivs = spline_lanes_plain(terms64,
+                                              [q.double() for q in qs])
+    row = {"entry": "lanes", "grids": list(GRIDS), "C": C, "L": L,
+           "P": list(P), "K": [t[2].shape[0] for t in terms],
+           "active": active, "sum_rel_err": [], "deriv_err": [],
+           "max_abs_err": 0.0}
+    for n, grid in enumerate(GRIDS):
+        y, m, x, act = terms64[n]
+        val, _ = evaluate_spline_with_deriv(SplineTable(x, y, m),
+                                            qs[n].double())
+        abs_sums = torch.where(act, val.abs(), 0.0).sum(dim=0)
+        errs = compare(f"spline lanes {grid} P={P[n]} C={C}", sums[n],
+                       derivs[n], ref_sums[n], ref_derivs[n], abs_sums)
+        row["sum_rel_err"].append(errs[0])
+        row["deriv_err"].append(errs[1])
+        row["max_abs_err"] = max(row["max_abs_err"], errs[2])
+    sums2, derivs2 = _lanes_fwd(tables, qs)
+    check(torch.equal(sums, sums2) and all(
+        torch.equal(a, b) for a, b in zip(derivs, derivs2)),
+        "spline lanes: a repeated launch is not bit-identical")
+    row.update(spline_times(lambda: _lanes_fwd(tables, qs),
+                            lambda: spline_lanes_plain(terms, qs),
+                            "spline_pairs_kernel"))
+    bounds = [spline_lanes_bound_ms(P_t, C, n_act, t[2].shape[0], peaks)
+              for P_t, n_act, t in zip(P, active, terms)]
+    row["bound_ms"] = sum(b for b, _ in bounds)
+    row["bound_by"] = "bytes" if all(by == "bytes" for _, by in bounds) \
+        else "operations"
+    print("spline " + json.dumps(row), flush=True)
+    return row
 
 
 # --------------------------------------------------------------------------
@@ -622,19 +730,27 @@ def start_torsions(seed: int, L: int, B: int, dev):
 
 @contextlib.contextmanager
 def plain_splines():
-    """The fold's restraint splines on their plain PyTorch version."""
+    """The fold's and the sampler's restraint splines on their plain
+    PyTorch versions (the lanes entry's per JAX's lane-major layout)."""
     import trx2dy_torch.physics.compact as compact
-    from trx2dy_torch.physics.spline import masked_spline_energy_pb
+    from trx2dy_torch.physics.spline import masked_spline_energy_lanes, \
+        masked_spline_energy_pb
 
     def plain(tables, qs):
         return torch.stack([masked_spline_energy_pb(y, m, x, q, act)
                             for (y, m, x, act), q in zip(tables.terms, qs)])
-    kernel = compact.spline_energy_pairs
+
+    def plain_lanes(tables, qs):
+        return torch.stack([masked_spline_energy_lanes(
+            y.transpose(0, 1), m.transpose(0, 1), x, q.T, act.T)
+            for (y, m, x, act), q in zip(tables.terms, qs)])
+    kernels = compact.spline_energy_pairs, compact.spline_energy_lanes
     compact.spline_energy_pairs = plain
+    compact.spline_energy_lanes = plain_lanes
     try:
         yield
     finally:
-        compact.spline_energy_pairs = kernel
+        compact.spline_energy_pairs, compact.spline_energy_lanes = kernels
 
 
 def run_fold_request(label: str, L: int, B: int, fn, dev):
@@ -1034,7 +1150,154 @@ def fold_phase(dev, work: Path, npz_b: str, seq_b: str):
     return [req_a, req_b, req_c], profs
 
 
-def kernel_summary(kernel_rows, spline_rows, launches: int, folds) -> list:
+def dampened_chain_stage(dev, save: Path, name: str, seq: str,
+                         cand: int):
+    """A chain step's first-stage tables as the driver builds them: both
+    models' predicted histograms, eight chains each, dampened by written
+    initial decoys (conf_1_k / conf_2_k, k = 1..8, read back), compiled
+    for 2 x 8 chains x `cand` candidate lanes. Returns (the stage, the
+    chains before and after dampening)."""
+    from trx2dy_torch.dynamics import driver
+    from trx2dy_torch.dynamics.loop import histograms_from_npz
+    from trx2dy_torch.geometry.transforms import virtual_cb
+    from trx2dy_torch.io.pdbio import read_pdb_backbone
+    from trx2dy_torch.physics.compact import _bucket, union_stage
+    from trx2dy_torch.physics.folder import GROWTH_HEADROOM
+    from trx2dy_torch.physics.tablegen import union_compiler
+    K = 8
+    hists = []
+    for tag in ("NMR", "Xray"):
+        with np.load(save / name / "pred_npz" / f"{name}_{tag}.npz") as f:
+            hists += [histograms_from_npz(dict(f), dev)] * K
+    chains = driver._stack_hists(hists)
+    atoms = {k: [] for k in ("N", "CA", "C")}
+    for conf in (1, 2):
+        for k in range(1, K + 1):
+            coords, _ = read_pdb_backbone(
+                str(save / name / "pred_pdb" / f"conf_{conf}_{k}.pdb"))
+            for a in atoms:
+                atoms[a].append(coords[a])
+    n, ca, c = (torch.as_tensor(np.stack(atoms[a]), dtype=torch.float32,
+                                device=dev) for a in ("N", "CA", "C"))
+    new, _ = driver._chain_update_batch(
+        chains, n, ca, c, virtual_cb(n, ca, c),
+        torch.ones((2 * K,), dtype=torch.bool, device=dev), 1.0, True)
+    pool = {f: getattr(new, f) for f in GRIDS}
+    comp = union_compiler(seq, device=dev)
+    counts = comp.count(pool)[1].tolist()
+    P = tuple(_bucket(int(np.ceil(c * GROWTH_HEADROOM))) for c in counts)
+    ur, stage_acts, _, _ = comp.compile(
+        pool, np.repeat(np.arange(2 * K), cand), P)
+    return union_stage(ur, stage_acts[0]), chains, new
+
+
+def run_single_phase(dev, work: Path, a3m: Path, model_dir: Path,
+                     seq: str) -> dict:
+    """Phase 6: run_single through the run_inference CLI at its defaults
+    but --Nmax, with every launch counter at 0 just before and read just
+    after; then the chain-step checks on the card."""
+    from trx2dy_torch.cli import run_inference
+    from trx2dy_torch.dynamics.driver import DynamicsConfig
+    from trx2dy_torch.ops.spline_energy import (
+        spline_energy_dense, spline_energy_lanes, spline_energy_pairs,
+    )
+    from trx2dy_torch.physics import energy
+    from trx2dy_torch.physics.folder import _bucket_size
+    from trx2dy_torch.physics.minimize import STATS
+
+    name = "run64"
+    fasta = work / f"{name}.fasta"
+    fasta.write_text(f">{name}\n{seq}\n")
+    save = work / "run_single"
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    spline_energy_pairs.launches = spline_energy_dense.launches = 0
+    spline_energy_lanes.launches = 0
+    STATS.reset()
+    t0 = time.perf_counter()
+    run_inference.main(["--fasta", str(fasta), "--msa", str(a3m),
+                        "--name", name, "--model_dir", str(model_dir),
+                        "--save_dir", str(save), "--Nmax", str(RUN_NMAX)])
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    out = {"L": len(seq), "Nmax": RUN_NMAX, "wall_s": wall,
+           "energy_evals": STATS.evals,
+           "restraint_free_evals": STATS.free_evals,
+           "host_syncs": STATS.syncs,
+           "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+           "spline_lanes_launches": spline_energy_lanes.launches,
+           "spline_pair_launches": spline_energy_pairs.launches,
+           "spline_dense_launches": spline_energy_dense.launches}
+    check(STATS.evals > 0 and spline_energy_lanes.launches == STATS.evals,
+          f"run_single: {spline_energy_lanes.launches} lanes launches for "
+          f"{STATS.evals} energy evaluations, expected 1 per evaluation")
+    check(spline_energy_pairs.launches == 0
+          and spline_energy_dense.launches == 0,
+          "run_single: the pair or dense entry launched on the chain path")
+
+    root = save / name
+    with open(root / "traces.jsonl") as f:
+        rows = [json.loads(ln) for ln in f]
+    phases = [r for r in rows if r["kind"] == "phase"]
+    chain_rows = [r for r in rows if r["kind"] == "chain"]
+    steps = [r for r in phases if isinstance(r["step"], int)]
+    check(phases and phases[0]["step"] == "initial" and steps
+          and phases[-1]["step"] == "io_drain",
+          f"run_single: trace phase rows {[r['step'] for r in phases]}")
+    check(not (root / "tmp_npz").exists(), "run_single: tmp_npz remains")
+    cfg = DynamicsConfig()
+    pdbs = sorted(os.listdir(root / "pred_pdb"))
+    for conf, tag in ((1, "NMR"), (2, "Xray")):
+        made = sum(r.get("model") == tag for r in chain_rows)
+        have = sum(p.startswith(f"conf_{conf}_") for p in pdbs)
+        check(1 <= made <= RUN_NMAX and have == cfg.init_num + made,
+              f"run_single: {have} conf_{conf} PDBs for {made} {tag} "
+              f"chain decoys")
+    check(all(p.startswith("conf_") for p in pdbs),
+          f"run_single: unrenamed PDBs {pdbs}")
+    for p in pdbs:
+        with open(root / "pred_pdb" / p) as f:
+            atoms = {ln[12:16].strip() for ln in f if ln.startswith("ATOM")}
+        check(len(atoms - {"N", "CA", "C", "O", "CB"}) > 0,
+              f"run_single: {p} has no side-chain atoms")
+    decoys = len(pdbs)
+    fold_s = sum(r["t_fold"] for r in phases if "t_fold" in r)
+    out.update({
+        "decoys": decoys, "decoys_per_min": 60.0 * decoys / wall,
+        "ms_per_eval": 1e3 * wall / max(STATS.evals, 1),
+        "fold_ms_per_eval": 1e3 * fold_s / max(STATS.evals, 1),
+        "phases": [{k: v for k, v in r.items() if k != "kind"}
+                   for r in phases]})
+    print("run_single " + json.dumps(out), flush=True)
+
+    # a chain step's tables on the card: kernel against the plain path
+    M, K = 2, cfg.n_chains
+    n_init = int(np.ceil(cfg.init_num * (1.0 + cfg.oversample)))
+    bucket = _bucket_size(max(M * n_init, M * K * cfg.chain_candidates))
+    stage, before, after = dampened_chain_stage(dev, save, name, seq,
+                                                bucket // (M * K))
+    for f in ("dist", "omega", "theta", "phi"):
+        old, new = getattr(before, f), getattr(after, f)
+        masked = old.amax(-1) < 0.5
+        err = (new.sum(-1) - 1.0).abs()[masked].max().item() \
+            if bool(masked.any()) else 0.0
+        check(err <= DAMPEN_NORM_TOL,
+              f"run_single: dampened {f} bins sum off 1 by {err}")
+    w = torch.as_tensor(energy.weights_to_vec(energy.SCOREFXN_CENT),
+                        device=dev)
+    fun = lambda x: energy.batched_energy_weighted_union(x, stage, w)
+    x0 = start_torsions(11, len(seq), bucket, dev)
+    out["chain_step_first_eval"] = check_kernel_vs_plain(
+        "chain step energy", fun, x0)
+    e_k, g_k = value_and_grad(fun, x0)
+    e_r, g_r = value_and_grad(fun, x0)
+    check(torch.equal(e_k, e_r) and torch.equal(g_k, g_r),
+          "chain step: a repeated energy evaluation is not bit-identical")
+    return out
+
+
+def kernel_summary(kernel_rows, spline_rows, launches: int, folds,
+                   run_single=None) -> list:
     """The `kernels` line: every kernel with its launches on the main path,
     its error, its times and its bound."""
     at_max = [r for r in kernel_rows if r["L"] == max(KERNEL_LENGTHS)]
@@ -1068,6 +1331,8 @@ def kernel_summary(kernel_rows, spline_rows, launches: int, folds) -> list:
     main_dense = [r for r in dense if r["B"] == B and r["L"] == L]
     total = lambda k: sum(r[k] for r in main_dense)
     pairs = next(r for r in spline_rows if r["entry"] == "pairs")
+    lanes, lanes64 = (next(r for r in spline_rows if r["entry"] == "lanes"
+                           and r["L"] == n) for n in (L, CLI_L))
     common = {"route": "cuda", "source": "trx2dy_torch/csrc/spline_energy.cu",
               "replaces": "trx2dy/ops/spline_energy.py:27",
               "library_ms": None,
@@ -1100,6 +1365,30 @@ def kernel_summary(kernel_rows, spline_rows, launches: int, folds) -> list:
         "shape": f"B={B}, P=" + "/".join(str(P) for P in pairs["P"])
                  + ", f32; one launch for the four knot grids (dist, omega, "
                    "theta, phi: one energy evaluation)",
+    })
+    kernels.append({
+        "name": "spline_energy_lanes", **common,
+        "replaces": "trx2dy/ops/spline_energy.py:27 (the sampler's "
+                    "per-lane tables, trx2dy/physics/spline.py:289)",
+        "launches": (run_single or {}).get("spline_lanes_launches", 0),
+        "max_abs_err": lanes["max_abs_err"],
+        "ms": lanes["kernel_ms"],
+        "kernel_ms": lanes["kernel_ms"],
+        "wrapper_ms": lanes["wrapper_ms"],
+        "plain_ms": lanes["plain_ms"],
+        "bound_ms": lanes["bound_ms"],
+        "bound_by": lanes["bound_by"],
+        "kernel_ms_L64": lanes64["kernel_ms"],
+        "wrapper_ms_L64": lanes64["wrapper_ms"],
+        "bound_ms_L64": lanes64["bound_ms"],
+        "shape": f"C={lanes['C']}, L={L}, P="
+                 + "/".join(str(P) for P in lanes["P"])
+                 + ", f32 per-lane tables (P, C, K); one launch for the four "
+                   "knot grids (one energy evaluation of the sampler); the "
+                   "bound counts the four table values of each active "
+                   "query's interval; *_L64: at L=64, P="
+                 + "/".join(str(P) for P in lanes64["P"])
+                 + ", phase 6's shapes",
     })
     return kernels
 
@@ -1155,10 +1444,13 @@ def main() -> int:
         query = (WORK / f"t{CLI_L}.a3m").read_text().splitlines()[1]
         folds, prof = fold_phase(dev, WORK, outputs[CLI_L]["NMR"], query)
         print(f"elapsed {time.perf_counter() - t0:.1f} s", flush=True)
+        run = run_single_phase(dev, WORK, WORK / f"t{CLI_L}.a3m",
+                               WORK / "models", query)
+        print(f"elapsed {time.perf_counter() - t0:.1f} s", flush=True)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
-    kernels = kernel_summary(kernel_rows, spline_rows, launches, folds)
+    kernels = kernel_summary(kernel_rows, spline_rows, launches, folds, run)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -9,7 +9,7 @@
 // the same pass the per-decoy masked sum of values and dE/dq (zero where
 // masked), so the backward pass is one multiply.
 //
-// Two entry points:
+// Three entry points:
 //   dense  y, m (L*L, K), q (B, L*L), mask (L*L)  -> the TPU kernel's layout,
 //          one term per launch; the caller sums the (B, n_blocks) partials.
 //   pairs  up to four terms at once, each y, m (P_t, K_t), x (K_t),
@@ -17,18 +17,31 @@
 //          fold evaluates (trx2dy/physics/spline.py:_eval_with_deriv_pb via
 //          compact.compact_restraint_energy_batch). One launch per energy
 //          evaluation writes every term's deriv and the (n_terms, B) sums.
+//   lanes  the pair entry with per-lane tables: each of up to four terms
+//          y, m (P_t, B, K_t), x (K_t), act (P_t, B), q (P_t, B), the
+//          Dynamics sampler's shared pair list with a table and an activity
+//          per lane (trx2dy/physics/spline.py:masked_spline_energy_lanes via
+//          compact.compact_restraint_energy_union). Tables and activity are
+//          pair-major like the queries, so lane b of pair p reads
+//          y[(p*B + b)*K + k] and act[p*B + b], and neighbouring threads
+//          read neighbouring q, act and deriv elements. One launch per
+//          energy evaluation, as for the pair entry.
 //
 // What bounds it on an H100: per query it reads q and 4 table values and
 // writes one derivative, with ~40 flops, far below the 67 TFLOP/s f32 rate,
 // so it is bound by bytes: one evaluation of the fold at L=150, B=50 moves
-// ~44 MB (q, deriv, the table rows), about 13 us at 3.35 TB/s.
+// ~44 MB (q, deriv, the table rows), about 13 us at 3.35 TB/s. The lanes
+// entry reads four table values per (pair, lane) from tables B times as
+// large; at a full L=150 union with B=32 it needs ~59 MB, about 18 us.
 //
 // Dense design: knots go to shared memory once per block; each thread finds
 // its interval by binary search over at most 64 knots (not the TPU kernel's
 // masked scan over all K-1 intervals) and reads the four table values from
 // the K-contiguous row; each block writes one fixed-order partial per decoy.
 //
-// Pair design, for launch count and latency rather than bytes:
+// Pair and lanes design (one kernel body, LANES a template flag that only
+// changes the table row and activity index), for launch count and latency
+// rather than bytes:
 //  - one launch for all terms: the x-blocks are split among the terms in
 //    order, each block walks `nit` tiles of PAIR_ELEMS x R consecutive
 //    pairs of one term, with nit chosen on the host so that the grid is
@@ -45,7 +58,8 @@
 //  - each interval's 1/h, h/6 and h*h/6 are computed once per block into
 //    shared memory, so an element does no division (1/h times a value is
 //    within an ulp or two of the plain version's division);
-//  - offsets are 32-bit: the entry refuses terms with P*B or P*K >= 2^31;
+//  - offsets are 32-bit: the entry refuses terms with P*B or P*K >= 2^31,
+//    and the lanes entry terms with P*B*K >= 2^31;
 //  - the per-decoy sum is finished in the kernel, deterministically, in two
 //    levels so that no block sums more than a few values per decoy: each
 //    block writes its fixed-order partials; the last block of each group of
@@ -62,6 +76,7 @@
 #include <stdint.h>
 
 // One term's stage constants as the host holds them (ctypes mirrors it).
+// The lanes entry's tables are per lane: y, m (P, B, K), act (P, B).
 struct PairTerm {
   const float* y;          // (P, K)
   const float* m;          // (P, K)
@@ -263,6 +278,7 @@ __device__ __forceinline__ bool arrive_last(unsigned int* counter,
   return last;
 }
 
+template <bool LANES>
 __global__ void __launch_bounds__(PAIR_THREADS, PAIR_BLOCKS_PER_SM)
 spline_pairs_kernel(const PairLaunch a) {
   __shared__ float xs[MAX_K];        // knots, +inf past K
@@ -314,7 +330,7 @@ spline_pairs_kernel(const PairLaunch a) {
       for (int e = 0; e < PAIR_ELEMS; ++e) {      // every load started first
         const int p = p0 + e * R;
         in[e] = p < last;
-        on[e] = in[e] && act[in[e] ? p : 0] != 0;
+        on[e] = in[e] && act[in[e] ? (LANES ? p * B + b : p) : 0] != 0;
         qv[e] = in[e] ? q[p * B + b] : 0.f;
       }
       int k[PAIR_ELEMS];
@@ -322,7 +338,8 @@ spline_pairs_kernel(const PairLaunch a) {
 #pragma unroll
       for (int e = 0; e < PAIR_ELEMS; ++e) {
         k[e] = min(max(count_le(xs, qv[e]) - 1, 0), K - 2);
-        const int row = (on[e] ? p0 + e * R : 0) * K + k[e];
+        const int pr = on[e] ? p0 + e * R : 0;
+        const int row = (LANES ? pr * B + b : pr) * K + k[e];
         ya[e] = y[row];
         yb[e] = y[row + 1];
         ma[e] = m[row];
@@ -430,49 +447,21 @@ long long pair_blocks(const PairTerm* terms, int n_terms, int B, int nit,
   return n;
 }
 
-}  // namespace
-
-// Plain C entry points, bound from Python with ctypes. All float tensors
-// are contiguous float32, masks are one byte per element (torch.bool).
-// Each launch returns cudaGetLastError() after the launch.
-
-extern "C" int trx2dy_spline_dense_blocks(long long n_pairs) {
-  return (int)((n_pairs + DENSE_THREADS - 1) / DENSE_THREADS);
-}
-
-// `n_blocks` is the caller's width of the (B, n_blocks) partial buffer and
-// must equal the kernel's block count.
-extern "C" int trx2dy_spline_dense(const float* y, const float* m,
-                                   const float* x, int K, const float* q,
-                                   const uint8_t* mask, long long n_pairs,
-                                   int B, float* partial, int n_blocks,
-                                   float* deriv, void* stream) {
-  if (K < 2 || K > MAX_K || B <= 0 || n_pairs <= 0 ||
-      n_blocks != trx2dy_spline_dense_blocks(n_pairs) ||
-      (B + DENSE_DECOYS - 1) / DENSE_DECOYS > 65535)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid(n_blocks, (B + DENSE_DECOYS - 1) / DENSE_DECOYS);
-  spline_dense_kernel<<<grid, DENSE_THREADS, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      y, m, x, K, q, mask, n_pairs, B, partial, deriv);
-  return (int)cudaGetLastError();
-}
-
 // Sizes for these terms and B on `device`: the float32 work buffer (sums
 // (n_terms, B), each term's deriv (P_t, B), the (n_blocks, B) and
 // (n_groups, B) partials) and, in *counters, the unsigned ints of the
-// launch's counters; -1 where the terms or B are out of range.
-extern "C" long long trx2dy_spline_pairs_buffer(const PairTerm* terms,
-                                                int n_terms, int B,
-                                                int device,
-                                                long long* counters) {
+// launch's counters; -1 where the terms or B are out of range. `lanes`
+// adds the per-lane tables' bound on P*B*K.
+long long pairs_buffer(const PairTerm* terms, int n_terms, int B, int device,
+                       long long* counters, bool lanes) {
   if (n_terms < 1 || n_terms > MAX_TERMS || B <= 0 ||
       (B + PAIR_THREADS - 1) / PAIR_THREADS > 65535)
     return -1;
   long long n = (long long)n_terms * B;
   for (int t = 0; t < n_terms; ++t) {
     if (terms[t].P <= 0 || terms[t].K < 2 || terms[t].K > MAX_K ||
-        terms[t].P * B >= 0x7fffffffLL || terms[t].P * MAX_K >= 0x7fffffffLL)
+        terms[t].P * B >= 0x7fffffffLL || terms[t].P * MAX_K >= 0x7fffffffLL ||
+        (lanes && terms[t].P * B * terms[t].K >= 0x7fffffffLL))
       return -1;
     n += terms[t].P * B;
   }
@@ -486,17 +475,10 @@ extern "C" long long trx2dy_spline_pairs_buffer(const PairTerm* terms,
   return n + (blocks + groups) * B;
 }
 
-// One launch for n_terms terms (stage constants in `terms`, host memory)
-// and their queries q[t] (P_t, B) into `buf`, laid out as
-// trx2dy_spline_pairs_buffer says. `counter` holds the unsigned ints it
-// says, 0 before the launch and 0 again after it; launches that share
-// counters must run on one stream. Runs on `device`; the caller's current
-// device is current again after.
-extern "C" int trx2dy_spline_pairs(const PairTerm* terms, int n_terms,
-                                   const float* const* q, int B, float* buf,
-                                   unsigned int* counter, int device,
-                                   void* stream) {
-  if (trx2dy_spline_pairs_buffer(terms, n_terms, B, device, nullptr) < 0)
+int pairs_launch(const PairTerm* terms, int n_terms, const float* const* q,
+                 int B, float* buf, unsigned int* counter, int device,
+                 void* stream, bool lanes) {
+  if (pairs_buffer(terms, n_terms, B, device, nullptr, lanes) < 0)
     return (int)cudaErrorInvalidValue;
   PairLaunch a{};
   a.n_terms = n_terms;
@@ -527,9 +509,79 @@ extern "C" int trx2dy_spline_pairs(const PairTerm* terms, int n_terms,
   cudaGetDevice(&current);
   if (current != device) cudaSetDevice(device);
   const dim3 grid(blocks, (B + a.W - 1) / a.W);
-  spline_pairs_kernel<<<grid, PAIR_THREADS, 0,
-                        static_cast<cudaStream_t>(stream)>>>(a);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (lanes)
+    spline_pairs_kernel<true><<<grid, PAIR_THREADS, 0, st>>>(a);
+  else
+    spline_pairs_kernel<false><<<grid, PAIR_THREADS, 0, st>>>(a);
   const int err = (int)cudaGetLastError();
   if (current != device) cudaSetDevice(current);
   return err;
+}
+
+}  // namespace
+
+// Plain C entry points, bound from Python with ctypes. All float tensors
+// are contiguous float32, masks are one byte per element (torch.bool).
+// Each launch returns cudaGetLastError() after the launch.
+
+extern "C" int trx2dy_spline_dense_blocks(long long n_pairs) {
+  return (int)((n_pairs + DENSE_THREADS - 1) / DENSE_THREADS);
+}
+
+// `n_blocks` is the caller's width of the (B, n_blocks) partial buffer and
+// must equal the kernel's block count.
+extern "C" int trx2dy_spline_dense(const float* y, const float* m,
+                                   const float* x, int K, const float* q,
+                                   const uint8_t* mask, long long n_pairs,
+                                   int B, float* partial, int n_blocks,
+                                   float* deriv, void* stream) {
+  if (K < 2 || K > MAX_K || B <= 0 || n_pairs <= 0 ||
+      n_blocks != trx2dy_spline_dense_blocks(n_pairs) ||
+      (B + DENSE_DECOYS - 1) / DENSE_DECOYS > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(n_blocks, (B + DENSE_DECOYS - 1) / DENSE_DECOYS);
+  spline_dense_kernel<<<grid, DENSE_THREADS, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      y, m, x, K, q, mask, n_pairs, B, partial, deriv);
+  return (int)cudaGetLastError();
+}
+
+// The pair entry's sizes (pairs_buffer) for shared (P_t, K_t) tables.
+extern "C" long long trx2dy_spline_pairs_buffer(const PairTerm* terms,
+                                                int n_terms, int B,
+                                                int device,
+                                                long long* counters) {
+  return pairs_buffer(terms, n_terms, B, device, counters, false);
+}
+
+// One launch for n_terms terms (stage constants in `terms`, host memory)
+// and their queries q[t] (P_t, B) into `buf`, laid out as
+// trx2dy_spline_pairs_buffer says. `counter` holds the unsigned ints it
+// says, 0 before the launch and 0 again after it; launches that share
+// counters must run on one stream. Runs on `device`; the caller's current
+// device is current again after.
+extern "C" int trx2dy_spline_pairs(const PairTerm* terms, int n_terms,
+                                   const float* const* q, int B, float* buf,
+                                   unsigned int* counter, int device,
+                                   void* stream) {
+  return pairs_launch(terms, n_terms, q, B, buf, counter, device, stream,
+                      false);
+}
+
+// The lanes entry: as the pair entry, with per-lane tables y, m
+// (P_t, B, K_t) and activity (P_t, B) in `terms`.
+extern "C" long long trx2dy_spline_lanes_buffer(const PairTerm* terms,
+                                                int n_terms, int B,
+                                                int device,
+                                                long long* counters) {
+  return pairs_buffer(terms, n_terms, B, device, counters, true);
+}
+
+extern "C" int trx2dy_spline_lanes(const PairTerm* terms, int n_terms,
+                                   const float* const* q, int B, float* buf,
+                                   unsigned int* counter, int device,
+                                   void* stream) {
+  return pairs_launch(terms, n_terms, q, B, buf, counter, device, stream,
+                      true);
 }

@@ -58,24 +58,26 @@ def virtual_cb(n, ca, c) -> torch.Tensor:
 
 
 def geometry_maps_6d(n, ca, c, cb=None, dmax: float = 20.0, atom_mask=None):
-    """Dense (L, L) dist/omega/theta/phi maps of one backbone, zeroed beyond
-    dmax, on the diagonal and (with atom_mask) on absent residues.
+    """Dense (..., L, L) dist/omega/theta/phi maps of backbones, zeroed
+    beyond dmax, on the diagonal and (with atom_mask) on absent residues.
 
-    n, ca, c, cb: (L, 3); cb defaults to the virtual CB."""
-    L = ca.shape[0]
+    n, ca, c, cb: (..., L, 3), any leading axes (a batch of decoys); cb
+    defaults to the virtual CB."""
+    L = ca.shape[-2]
     if cb is None:
         cb = virtual_cb(n, ca, c)
-    d2 = torch.sum((cb[:, None, :] - cb[None, :, :]) ** 2, dim=-1)
+    d2 = torch.sum((cb[..., :, None, :] - cb[..., None, :, :]) ** 2, dim=-1)
     d = torch.sqrt(d2 + _EPS ** 2)
     eye = torch.eye(L, dtype=torch.bool, device=ca.device)
     mask = (d <= dmax) & ~eye
     if atom_mask is not None:
-        mask = mask & atom_mask[:, None] & atom_mask[None, :]
-    ca_i = ca[:, None, :].expand(L, L, 3)
-    ca_j = ca[None, :, :].expand(L, L, 3)
-    cb_i = cb[:, None, :].expand(L, L, 3)
-    cb_j = cb[None, :, :].expand(L, L, 3)
-    n_i = n[:, None, :].expand(L, L, 3)
+        mask = mask & atom_mask[..., :, None] & atom_mask[..., None, :]
+    shape = ca.shape[:-2] + (L, L, 3)
+    ca_i = ca[..., :, None, :].expand(shape)
+    ca_j = ca[..., None, :, :].expand(shape)
+    cb_i = cb[..., :, None, :].expand(shape)
+    cb_j = cb[..., None, :, :].expand(shape)
+    n_i = n[..., :, None, :].expand(shape)
     z = torch.zeros_like(d)
     return {
         "dist": torch.where(mask, d, z),

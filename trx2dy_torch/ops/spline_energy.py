@@ -5,7 +5,7 @@ The kernel (csrc/spline_energy.cu) replaces the Pallas TPU kernel
 trx2dy/ops/spline_energy.py:_spline_kernel. Per decoy it sums a masked
 natural-cubic spline over its queries and returns dE/dq in the same pass,
 so each wrapper is an autograd Function whose backward is `g * deriv`.
-Two entry points:
+Three entry points:
 
   spline_energy_dense(y, m, x, q, mask)  y, m (L, L, K); q (B, L, L);
       mask (L, L) bool -> (B,). The TPU kernel's layout
@@ -16,12 +16,21 @@ Two entry points:
       terms. The compacted pair lists of the production fold
       (compact.compact_restraint_energy_batch); compact.compact_to builds
       the SplinePairs once per stage, which is where the tables are checked.
+  spline_energy_lanes(tables, qs)        tables: SplineLanes of up to four
+      terms, each with per-lane tables y, m (P_t, C, K_t), x (K_t,) and
+      act (P_t, C) bool; qs: one (P_t, C) query tensor per term ->
+      (n_terms, C), one launch for all terms. The Dynamics sampler's shared
+      pair list with per-lane tables (compact.compact_restraint_energy_union,
+      the port of spline.masked_spline_energy_lanes). Tables and activity
+      are pair-major like the queries, the layout physics/tablegen.py
+      emits, so no evaluation transposes anything; compact.union_stage
+      builds the SplineLanes once per protocol stage of a sampler step.
 
 Knots have K <= 64 and tensors are float32 on the card. A CPU tensor takes
 the plain version (the port of spline.evaluate_spline_with_deriv or
 _eval_with_deriv_pb); a CUDA tensor launches the kernel or raises.
-`spline_energy_dense.launches` and `spline_energy_pairs.launches` count
-kernel launches.
+`spline_energy_dense.launches`, `spline_energy_pairs.launches` and
+`spline_energy_lanes.launches` count kernel launches.
 """
 from __future__ import annotations
 
@@ -58,6 +67,18 @@ def spline_pairs_plain(terms, qs):
     return torch.stack(sums), tuple(derivs)
 
 
+def spline_lanes_plain(terms, qs):
+    """(per-lane masked sums (n_terms, C), each term's masked deriv
+    (P_t, C)) in PyTorch; terms holds per-lane (y, m, x, act) per term."""
+    sums, derivs = [], []
+    for (y, m, x, act), q in zip(terms, qs):
+        val, der = evaluate_spline_with_deriv(SplineTable(x, y, m), q)
+        zero = torch.zeros((), dtype=q.dtype, device=q.device)
+        sums.append(torch.sum(torch.where(act, val, zero), dim=0))
+        derivs.append(torch.where(act, der, zero))
+    return torch.stack(sums), tuple(derivs)
+
+
 class _PairTerm(ctypes.Structure):
     """csrc/spline_energy.cu:PairTerm, one term's stage constants."""
     _fields_ = [("y", ctypes.c_void_p), ("m", ctypes.c_void_p),
@@ -76,32 +97,39 @@ def _lib():
         lib.trx2dy_spline_dense_blocks.argtypes = [ll]
         lib.trx2dy_spline_pairs_buffer.argtypes = [vp, i, i, i, vp]
         lib.trx2dy_spline_pairs.argtypes = [vp, i, vp, i, vp, vp, i, vp]
+        lib.trx2dy_spline_lanes_buffer.argtypes = [vp, i, i, i, vp]
+        lib.trx2dy_spline_lanes.argtypes = [vp, i, vp, i, vp, vp, i, vp]
         for fn in (lib.trx2dy_spline_dense, lib.trx2dy_spline_dense_blocks,
-                   lib.trx2dy_spline_pairs):
+                   lib.trx2dy_spline_pairs, lib.trx2dy_spline_lanes):
             fn.restype = ctypes.c_int
         lib.trx2dy_spline_pairs_buffer.restype = ll
+        lib.trx2dy_spline_lanes_buffer.restype = ll
     return lib
 
 
-def _check_tables(terms) -> None:
+def _check_tables(terms, entry: str = "spline_energy_pairs",
+                  lanes: bool = False) -> None:
     """Raise ValueError unless `terms` are 1..MAX_TERMS tuples (y, m, x,
-    act) that the pair entry takes: knots x (K,) with 2 <= K <= MAX_K,
-    tables y, m (P, K) of the knots' floating dtype (float32 on a CUDA
-    device), act (P,) bool, all contiguous and on one device."""
+    act) that the entry takes: knots x (K,) with 2 <= K <= MAX_K, tables
+    y, m (P, K) of the knots' floating dtype (float32 on a CUDA device),
+    act (P,) bool, all contiguous and on one device. With lanes, the
+    per-lane tables y, m (P, C, K) and act (P, C), one C for all terms."""
     if not 1 <= len(terms) <= MAX_TERMS:
-        raise ValueError(f"spline_energy_pairs: 1 to {MAX_TERMS} terms, "
+        raise ValueError(f"{entry}: 1 to {MAX_TERMS} terms, "
                          f"got {len(terms)}")
     dev = terms[0][0].device
+    C = terms[0][0].shape[1] if lanes and terms[0][0].dim() == 3 else 0
     for n, (y, m, x, act) in enumerate(terms):
-        name = f"spline_energy_pairs term {n}"
+        name = f"{entry} term {n}"
         K = x.shape[0] if x.dim() == 1 else -1
         if not 2 <= K <= MAX_K:
             raise ValueError(f"{name}: knots must be (K,) with 2 <= K <= "
                              f"{MAX_K}, got {tuple(x.shape)}")
-        P = y.shape[0] if y.dim() == 2 else 0
-        for tname, t, shape in (("y", y, (P, K)), ("m", m, (P, K)),
-                                ("act", act, (P,))):
-            if P < 1 or tuple(t.shape) != shape:
+        P = y.shape[0] if y.dim() == (3 if lanes else 2) else 0
+        lead = (P, C) if lanes else (P,)
+        for tname, t, shape in (("y", y, lead + (K,)), ("m", m, lead + (K,)),
+                                ("act", act, lead)):
+            if P < 1 or (lanes and C < 1) or tuple(t.shape) != shape:
                 raise ValueError(f"{name}: {tname} must be {shape} with "
                                  f"P >= 1, got {tuple(t.shape)}")
         ok = (torch.float32,) if dev.type == "cuda" else (torch.float32,
@@ -123,9 +151,12 @@ class SplinePairs:
     checked once when built (compact.compact_to builds one per stage), so
     each evaluation checks only its queries."""
 
+    entry = "spline_energy_pairs"
+    lanes = False
+
     def __init__(self, terms):
         terms = tuple(tuple(t) for t in terms)
-        _check_tables(terms)
+        _check_tables(terms, self.entry, self.lanes)
         self.terms = terms
         self.device = terms[0][0].device
         self.sizes = tuple(y.shape[0] for y, _, _, _ in terms)
@@ -148,15 +179,30 @@ class SplinePairs:
         layout = self._layout.get(B)
         if layout is None:
             counters = ctypes.c_longlong()
-            n = lib.trx2dy_spline_pairs_buffer(
-                self._launch_constants(lib), len(self.terms), B,
-                self.device.index, ctypes.byref(counters))
+            size = lib.trx2dy_spline_lanes_buffer if self.lanes \
+                else lib.trx2dy_spline_pairs_buffer
+            n = size(self._launch_constants(lib), len(self.terms), B,
+                     self.device.index, ctypes.byref(counters))
             if n < 0:
-                raise ValueError(f"spline_energy_pairs: B={B} out of range")
+                raise ValueError(f"{self.entry}: B={B} out of range")
             parts = [len(self.terms) * B] + [P * B for P in self.sizes]
             parts.append(n - sum(parts))
             layout = self._layout[B] = (parts, counters.value)
         return layout
+
+
+class SplineLanes(SplinePairs):
+    """The stage constants of the lanes entry: per term the per-lane
+    (y, m, x, act), y, m (P, C, K) and act (P, C), checked once when built
+    (compact.union_stage builds one per protocol stage of a sampler step).
+    Its queries must have C lanes."""
+
+    entry = "spline_energy_lanes"
+    lanes = True
+
+    def __init__(self, terms):
+        super().__init__(terms)
+        self.n_lanes = self.terms[0][0].shape[1]
 
 
 _counters: dict = {}    # device index -> the pair entry's counters
@@ -173,22 +219,24 @@ def _counter(dev, n: int) -> torch.Tensor:
 
 
 def _check_queries(tables: SplinePairs, qs) -> int:
-    """The per-evaluation checks of the pair entry; returns B."""
+    """The per-evaluation checks of the pair and lanes entries; returns B
+    (the lanes entry's C)."""
+    entry = tables.entry
     if len(qs) != len(tables.terms):
-        raise ValueError(f"spline_energy_pairs: {len(qs)} query tensors for "
+        raise ValueError(f"{entry}: {len(qs)} query tensors for "
                          f"{len(tables.terms)} terms")
-    B = qs[0].shape[-1]
+    B = tables.n_lanes if tables.lanes else qs[0].shape[-1]
     for n, (q, P) in enumerate(zip(qs, tables.sizes)):
         if q.device.type != "cuda":
-            raise ValueError(f"spline_energy_pairs: tensors must be on a "
-                             f"CUDA device, got {q.device}")
+            raise ValueError(f"{entry}: tensors must be on a CUDA device, "
+                             f"got {q.device}")
         if q.device != tables.device or q.dtype != torch.float32:
-            raise ValueError(f"spline_energy_pairs: q[{n}] must be float32 "
-                             f"on {tables.device}, got {q.dtype} on "
+            raise ValueError(f"{entry}: q[{n}] must be float32 on "
+                             f"{tables.device}, got {q.dtype} on "
                              f"{q.device}")
         if q.shape != (P, B) or not q.is_contiguous():
-            raise ValueError(f"spline_energy_pairs: q[{n}] must be a "
-                             f"contiguous ({P}, {B}), got {tuple(q.shape)}")
+            raise ValueError(f"{entry}: q[{n}] must be a contiguous "
+                             f"({P}, {B}), got {tuple(q.shape)}")
     return B
 
 
@@ -248,10 +296,9 @@ def _dense_fwd(y, m, x, q, mask):
     return out
 
 
-def _pairs_fwd(tables: SplinePairs, qs):
-    """(sums (n_terms, B), each term's deriv (P_t, B)): one launch."""
-    if qs[0].device.type == "cpu":
-        return spline_pairs_plain(tables.terms, qs)
+def _fused_launch(tables: SplinePairs, qs):
+    """One launch of the pair or lanes entry on CUDA tensors: (sums
+    (n_terms, B), each term's deriv (P_t, B))."""
     B = _check_queries(tables, qs)
     lib = _lib()
     parts, n_counters = tables._parts(lib, B)
@@ -260,17 +307,35 @@ def _pairs_fwd(tables: SplinePairs, qs):
     qptrs = tables._qptrs
     for n, q in enumerate(qs):
         qptrs[n] = q.data_ptr()
-    err = lib.trx2dy_spline_pairs(
-        tables._c, len(qs), qptrs, B, buf.data_ptr(),
-        _counter(dev, n_counters).data_ptr(), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
+    launch = lib.trx2dy_spline_lanes if tables.lanes \
+        else lib.trx2dy_spline_pairs
+    err = launch(tables._c, len(qs), qptrs, B, buf.data_ptr(),
+                 _counter(dev, n_counters).data_ptr(), dev.index,
+                 torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"spline_energy_pairs kernel launch failed: "
+        raise RuntimeError(f"{tables.entry} kernel launch failed: "
                            f"cudaError {err}")
-    spline_energy_pairs.launches += 1
     sums, *derivs = buf.split(parts)[:-1]
     return sums.view(len(qs), B), tuple(
         d.view(P, B) for d, P in zip(derivs, tables.sizes))
+
+
+def _pairs_fwd(tables: SplinePairs, qs):
+    """(sums (n_terms, B), each term's deriv (P_t, B)): one launch."""
+    if qs[0].device.type == "cpu":
+        return spline_pairs_plain(tables.terms, qs)
+    out = _fused_launch(tables, qs)
+    spline_energy_pairs.launches += 1
+    return out
+
+
+def _lanes_fwd(tables: SplineLanes, qs):
+    """(sums (n_terms, C), each term's deriv (P_t, C)): one launch."""
+    if qs[0].device.type == "cpu":
+        return spline_lanes_plain(tables.terms, qs)
+    out = _fused_launch(tables, qs)
+    spline_energy_lanes.launches += 1
+    return out
 
 
 class _Dense(torch.autograd.Function):
@@ -299,6 +364,19 @@ class _Pairs(torch.autograd.Function):
                                                 ctx.saved_tensors)))
 
 
+class _Lanes(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tables, *qs):
+        sums, derivs = _lanes_fwd(tables, qs)
+        ctx.save_for_backward(*derivs)
+        return sums
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, *(gt * d for gt, d in zip(g.unbind(0),
+                                                ctx.saved_tensors)))
+
+
 def spline_energy_dense(y, m, x, q, mask):
     """(B,) masked spline energies of q (B, L, L) over shared (L, L, K)
     tables; differentiable in q."""
@@ -312,5 +390,13 @@ def spline_energy_pairs(tables: SplinePairs, qs) -> torch.Tensor:
     return _Pairs.apply(tables, *qs)
 
 
+def spline_energy_lanes(tables: SplineLanes, qs) -> torch.Tensor:
+    """(n_terms, C) masked spline energies of the pair-major queries qs
+    (one (P_t, C) tensor per term of `tables`) over per-lane tables, one
+    launch for all terms; differentiable in every q."""
+    return _Lanes.apply(tables, *qs)
+
+
 spline_energy_dense.launches = 0
 spline_energy_pairs.launches = 0
+spline_energy_lanes.launches = 0

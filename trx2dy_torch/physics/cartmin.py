@@ -15,10 +15,13 @@ this module adds per-atom displacements on top of it, minimised against
     CB.
 
 The restraint terms take compacted pair lists ("compact", through the
-spline kernel's pair entry, one launch per evaluation) or dense tables and
-masks ("dense", the reference the tests hold the compact kind to, through
-the kernel's dense entry). The chain-mode kinds ("lanes", "union") and
-cartesian_refine_lanes come with the sampler's slice of the port.
+spline kernel's pair entry, one launch per evaluation), the Dynamics
+sampler's shared pair list with per-lane tables ("union", a
+compact.UnionStage, through the kernel's lanes entry, one launch per
+evaluation; cartesian_refine_lanes), or dense tables and masks ("dense",
+the reference the tests hold the compact kind to, through the kernel's
+dense entry). The host chain fold's "lanes" kind (per-lane pair lists) is
+not ported.
 """
 from __future__ import annotations
 
@@ -34,7 +37,8 @@ from trx2dy_torch.geometry.nerf import (
 from trx2dy_torch.geometry.transforms import backbone_torsions, virtual_cb
 from trx2dy_torch.ops.spline_energy import spline_energy_dense
 from trx2dy_torch.physics.compact import (
-    CompactRestraints, compact_restraint_energy_batch,
+    CompactRestraints, UnionStage, compact_restraint_energy_batch,
+    compact_restraint_energy_union,
 )
 from trx2dy_torch.physics.energy import (
     EnergyWeights, WEIGHT_FIELDS, hbond_energy, omega_planarity_energy,
@@ -140,8 +144,9 @@ def _cart_efun(atoms0: dict, tables, w_vec, kind: str,
                dist_on_ca: bool = False, res_mask=None):
     """delta (B, 15L) -> (B,) total cartesian-refinement energy, the score
     function as a (9,) weight tensor. kind "compact": tables a
-    CompactRestraints on the device (compact.compact_to); "dense": tables
-    (rst, masks) as tensors (restraints.tables_to / masks_to), whose
+    CompactRestraints on the device (compact.compact_to); "union": a
+    compact.UnionStage (per-lane tables, B = the stage's lanes); "dense":
+    tables (rst, masks) as tensors (restraints.tables_to / masks_to), whose
     distance is CB-CB whatever dist_on_ca says, as in JAX."""
     w = dict(zip(WEIGHT_FIELDS, w_vec))
 
@@ -152,8 +157,12 @@ def _cart_efun(atoms0: dict, tables, w_vec, kind: str,
             return compact_restraint_energy_batch(
                 atoms_b, tables, w["atom_pair"], w["dihedral"], w["angle"],
                 dist_on_ca=dist_on_ca)
+        if kind == "union":
+            return compact_restraint_energy_union(
+                atoms_b, tables, w["atom_pair"], w["dihedral"], w["angle"],
+                dist_on_ca=dist_on_ca)
         raise ValueError(f"cartesian energy kind {kind!r} is not ported "
-                         "(compact, dense)")
+                         "(compact, union, dense)")
 
     def efun(delta):
         atoms = _delta_unpack(atoms0, delta)
@@ -197,7 +206,11 @@ def _log(stage_log, label, iters, t0):
 
 
 def _table_kind(tables) -> str:
-    return "compact" if isinstance(tables, CompactRestraints) else "dense"
+    if isinstance(tables, CompactRestraints):
+        return "compact"
+    if isinstance(tables, UnionStage):
+        return "union"
+    return "dense"
 
 
 def _zero_delta(atoms):
@@ -223,7 +236,8 @@ def cartesian_relax_block(atoms: dict, tables, w_stages, w_full_vec,
     iters), ...) carrying the displacement vector, in chunks of CART_CHUNK
     iterations, then accept_to_best against the starting pose under the
     full weights (1relax_round1.txt:10-16 `switch:cartesian repeat 1`).
-    tables: a device CompactRestraints or dense (rst, masks) tensors.
+    tables: a device CompactRestraints, a compact.UnionStage or dense
+    (rst, masks) tensors.
 
     Returns (atoms dict, (B,) full-weight energies of the kept pose). The
     accept_to_best choice stays on the device. stage_log, if given,
@@ -290,4 +304,15 @@ def cartesian_refine_compact(atoms: dict, cr, w: EnergyWeights,
     stage. stage_log, if given, receives ("cart_refine", ...) and
     ("idealize", iterations, wall_s)."""
     return _refine(atoms, cr, weights_to_vec(w), max_iter, dist_on_ca,
+                   res_mask, stage_log)
+
+
+def cartesian_refine_lanes(atoms: dict, stage, w: EnergyWeights,
+                           max_iter: int = 200, dist_on_ca: bool = False,
+                           res_mask=None, stage_log: Optional[list] = None):
+    """The sampler's refinement (cartmin.py:390-420): lane k of the atoms
+    (C, L, 3) refines against its own tables of a compact.UnionStage (the
+    relax round-2 stage fold_chains_pool builds), then the idealize pass.
+    Returns (refined atoms, (C,) final energies)."""
+    return _refine(atoms, stage, weights_to_vec(w), max_iter, dist_on_ca,
                    res_mask, stage_log)

@@ -1,13 +1,20 @@
 """Compacted active-pair restraint evaluation.
 
-Port of trx2dy/physics/compact.py for the shared-table fold. A stage's
-activation masks are constants, so they are compacted on the host into
-per-term pair lists (i, j) with their gathered spline tables, padded to a
-half-octave bucket (the JAX ladder, so shapes match and stay few).
-Geometry is computed per active pair from gathered atoms, and the four
-terms' splines run through the kernel's pair entry (ops.spline_energy_pairs)
-in one launch per energy evaluation; compact_to checks the stage's tables
-for it once.
+Port of trx2dy/physics/compact.py for the shared-table fold and the
+Dynamics sampler's union form. A stage's activation masks are constants,
+so they are compacted on the host into per-term pair lists (i, j) with
+their gathered spline tables, padded to a half-octave bucket (the JAX
+ladder, so shapes match and stay few). Geometry is computed per active
+pair from gathered atoms, and the four terms' splines run through the
+kernel's pair entry (ops.spline_energy_pairs) in one launch per energy
+evaluation; compact_to checks the stage's tables for it once.
+
+The sampler's union form (UnionRestraints, built on the device by
+physics/tablegen.py) shares one pair list per term among all lanes, with
+per-lane tables and activity, laid out pair-major: y, m (P, C, K), acts
+(P, C). Its splines run through the kernel's lanes entry
+(ops.spline_energy_lanes), one launch per evaluation; union_stage checks a
+protocol stage's tables for it once per sampler step.
 
 Atoms are gathered by index: JAX's one-hot product at Precision.HIGHEST
 (compact.py:427-431) is an exact gather chosen for the TPU's matrix unit,
@@ -24,7 +31,9 @@ import numpy as np
 import torch
 
 from trx2dy_torch.geometry.transforms import bond_angle, dihedral
-from trx2dy_torch.ops.spline_energy import SplinePairs, spline_energy_pairs
+from trx2dy_torch.ops.spline_energy import (
+    SplineLanes, SplinePairs, spline_energy_lanes, spline_energy_pairs,
+)
 from trx2dy_torch.physics.restraints import RestraintMasks, RestraintSet
 from trx2dy_torch.physics.spline import masked_spline_energy
 
@@ -58,11 +67,18 @@ class Rows(NamedTuple):
     offsets: torch.Tensor   # (L + 1,) start of each residue's positions
 
 
+def rows_on_device(idx: torch.Tensor, L: int) -> Rows:
+    """Rows of a residue index tensor, made where it lies with no host
+    read."""
+    idx = idx.to(torch.int64)
+    order = torch.argsort(idx, stable=True)
+    offsets = torch.searchsorted(
+        idx[order], torch.arange(L + 1, dtype=torch.int64, device=idx.device))
+    return Rows(idx, order, offsets)
+
+
 def _rows(idx: np.ndarray, L: int, device) -> Rows:
-    counts = np.bincount(idx, minlength=L)
-    return Rows(*(torch.as_tensor(a, dtype=torch.int64, device=device)
-                  for a in (idx, np.argsort(idx, kind="stable"),
-                            np.concatenate([[0], np.cumsum(counts)]))))
+    return rows_on_device(torch.as_tensor(np.asarray(idx), device=device), L)
 
 
 class _GatherRows(torch.autograd.Function):
@@ -168,12 +184,9 @@ def compact_restraint_energy(atoms: dict, cr: CompactRestraints,
     return e + w_angle * masked_spline_energy(t.y, t.m, t.x, q, t.act)
 
 
-def compact_restraint_energy_batch(atoms_b: dict, cr: CompactRestraints,
-                                   w_atom_pair, w_dihedral, w_angle,
-                                   dist_on_ca: bool = False) -> torch.Tensor:
-    """Restraint energy of a decoy batch (atoms (B, L, 3)) over device pair
-    lists (compact_to), pair-major: (B,) energies. The four terms' queries
-    go to the spline kernel in one launch; the weights stay outside it."""
+def _pair_queries(atoms_b: dict, terms, dist_on_ca: bool = False):
+    """The four terms' pair-major (P_t, B) queries of a decoy batch (atoms
+    (B, L, 3)) at the terms' device pair lists (i, j as Rows)."""
     # (L, B, 9): per residue row, all decoys' N | CA | CB
     A = torch.cat([atoms_b["N"], atoms_b["CA"], atoms_b["CB"]], dim=-1)
     A = A.transpose(0, 1).contiguous()
@@ -182,25 +195,100 @@ def compact_restraint_energy_batch(atoms_b: dict, cr: CompactRestraints,
         picked = gather_rows(A, rows).unflatten(-1, (3, 3))  # (P, B, 3, 3)
         return picked[..., 0, :], picked[..., 1, :], picked[..., 2, :]
 
-    t = cr.dist
-    _, ca_i, cb_i = side(t.i)
-    _, ca_j, cb_j = side(t.j)
+    dist, omega, theta, phi = terms
+    _, ca_i, cb_i = side(dist.i)
+    _, ca_j, cb_j = side(dist.j)
     dvec = (ca_i - ca_j) if dist_on_ca else (cb_i - cb_j)
     q_dist = torch.sqrt(torch.sum(dvec * dvec, dim=-1) + 1e-12)
-    t = cr.omega
-    _, ca_i, cb_i = side(t.i)
-    _, ca_j, cb_j = side(t.j)
+    _, ca_i, cb_i = side(omega.i)
+    _, ca_j, cb_j = side(omega.j)
     q_omega = dihedral(ca_i, cb_i, cb_j, ca_j)
-    t = cr.theta
-    n_i, ca_i, cb_i = side(t.i)
-    _, _, cb_j = side(t.j)
+    n_i, ca_i, cb_i = side(theta.i)
+    _, _, cb_j = side(theta.j)
     q_theta = dihedral(n_i, ca_i, cb_i, cb_j)
-    t = cr.phi
-    _, ca_i, cb_i = side(t.i)
-    _, _, cb_j = side(t.j)
+    _, ca_i, cb_i = side(phi.i)
+    _, _, cb_j = side(phi.j)
     q_phi = bond_angle(ca_i, cb_i, cb_j)
-    e_dist, e_omega, e_theta, e_phi = spline_energy_pairs(
-        cr.splines, [q.contiguous() for q in (q_dist, q_omega, q_theta,
-                                              q_phi)]).unbind(0)
+    return [q.contiguous() for q in (q_dist, q_omega, q_theta, q_phi)]
+
+
+def compact_restraint_energy_batch(atoms_b: dict, cr: CompactRestraints,
+                                   w_atom_pair, w_dihedral, w_angle,
+                                   dist_on_ca: bool = False) -> torch.Tensor:
+    """Restraint energy of a decoy batch (atoms (B, L, 3)) over device pair
+    lists (compact_to), pair-major: (B,) energies. The four terms' queries
+    go to the spline kernel in one launch; the weights stay outside it."""
+    qs = _pair_queries(atoms_b, (cr.dist, cr.omega, cr.theta, cr.phi),
+                       dist_on_ca)
+    e_dist, e_omega, e_theta, e_phi = spline_energy_pairs(cr.splines,
+                                                          qs).unbind(0)
+    return w_atom_pair * e_dist + w_dihedral * e_omega + \
+        w_dihedral * e_theta + w_angle * e_phi
+
+
+class UnionTerm(NamedTuple):
+    """One restraint term of the sampler: a pair list shared by every lane
+    (the union of the lanes' active pairs) with per-lane tables, pair-major
+    (compact.py:294-325 holds y, m lane-major as (C, P, K))."""
+    i: Rows               # (P,) residue index i, shared across lanes
+    j: Rows               # (P,) residue index j
+    y: torch.Tensor       # (P, C, K) per-lane spline values
+    m: torch.Tensor       # (P, C, K) per-lane second derivatives
+    x: torch.Tensor       # (K,) shared knots
+
+
+class UnionRestraints(NamedTuple):
+    dist: UnionTerm
+    omega: UnionTerm
+    theta: UnionTerm
+    phi: UnionTerm
+
+
+class UnionActs(NamedTuple):
+    """Per-lane activity on the shared pair lists for one protocol stage,
+    each (P, C) bool."""
+    dist: torch.Tensor
+    omega: torch.Tensor
+    theta: torch.Tensor
+    phi: torch.Tensor
+
+
+class UnionStage(NamedTuple):
+    """A protocol stage of the sampler's fold: the tables, the stage's
+    activity, and their SplineLanes for the kernel's lanes entry."""
+    ur: UnionRestraints
+    acts: UnionActs
+    splines: SplineLanes
+
+
+def union_stage(ur: UnionRestraints, acts: UnionActs) -> UnionStage:
+    """The stage with its SplineLanes, which checks the tables (once per
+    stage of a sampler step, not per evaluation)."""
+    return UnionStage(ur, acts, SplineLanes(
+        (t.y, t.m, t.x, a) for t, a in zip(ur, acts)))
+
+
+def union_take_lanes(ur: UnionRestraints, acts: UnionActs, sel):
+    """The surviving lanes sel of the tables and activity (the folder's
+    converged-lane repacking): only y, m and act carry the lane axis; the
+    pair lists and knots are shared."""
+    sel = torch.as_tensor(sel, dtype=torch.int64, device=ur.dist.y.device)
+    terms = [t._replace(y=t.y.index_select(1, sel),
+                        m=t.m.index_select(1, sel)) for t in ur]
+    return (UnionRestraints(*terms),
+            UnionActs(*[a.index_select(1, sel) for a in acts]))
+
+
+def compact_restraint_energy_union(atoms_b: dict, stage: UnionStage,
+                                   w_atom_pair, w_dihedral, w_angle,
+                                   dist_on_ca: bool = False) -> torch.Tensor:
+    """Restraint energy of the sampler's lanes (atoms (C, L, 3)) over the
+    shared pair lists with per-lane tables (compact.py:345-400): (C,)
+    energies. Atom selection is the batch path's deterministic gather; the
+    four terms' pair-major queries go to the kernel's lanes entry in one
+    launch."""
+    qs = _pair_queries(atoms_b, stage.ur, dist_on_ca)
+    e_dist, e_omega, e_theta, e_phi = spline_energy_lanes(stage.splines,
+                                                          qs).unbind(0)
     return w_atom_pair * e_dist + w_dihedral * e_omega + \
         w_dihedral * e_theta + w_angle * e_phi

@@ -22,7 +22,9 @@ import torch
 from trx2dy_torch.geometry.nerf import build_backbone
 from trx2dy_torch.geometry.transforms import bond_angle, dihedral
 from trx2dy_torch.ops.spline_energy import spline_energy_dense
-from trx2dy_torch.physics.compact import compact_restraint_energy_batch
+from trx2dy_torch.physics.compact import (
+    compact_restraint_energy_batch, compact_restraint_energy_union,
+)
 from trx2dy_torch.physics.restraints import restraint_energy
 
 
@@ -286,6 +288,21 @@ def batched_energy_weighted_compact(x, cr, w_vec, dist_on_ca: bool = False,
     atoms = build_backbone(t[:, 0], t[:, 1], t[:, 2])
     return _base_energy(t, atoms, w, res_mask) + \
         compact_restraint_energy_batch(atoms, cr, w["atom_pair"],
+                                       w["dihedral"], w["angle"], dist_on_ca)
+
+
+def batched_energy_weighted_union(x, stage, w_vec, dist_on_ca: bool = False,
+                                  res_mask=None) -> torch.Tensor:
+    """(C, 3L) flattened torsions -> (C,) energies of the sampler's lanes
+    over a shared pair list with per-lane tables (a compact.UnionStage, the
+    Dynamics sampler's fold, folder.fold_chains_pool). The restraint terms
+    run pair-major through the spline kernel's lanes entry, one launch for
+    all four terms."""
+    w = _weights(w_vec)
+    t = x.reshape(x.shape[0], 3, -1)
+    atoms = build_backbone(t[:, 0], t[:, 1], t[:, 2])
+    return _base_energy(t, atoms, w, res_mask) + \
+        compact_restraint_energy_union(atoms, stage, w["atom_pair"],
                                        w["dihedral"], w["angle"], dist_on_ca)
 
 

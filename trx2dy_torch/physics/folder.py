@@ -28,9 +28,15 @@ active ones repacked into a smaller bucket. The energy is the compacted
 pair-list path, whose restraint splines run through the CUDA kernel's pair
 entry, one launch per energy evaluation, in every stage above.
 
-Chain folding comes with a later slice of the port. JAX's single-program
-driver (staged_execution=False, _protocol_jit) is a compile strategy of
-XLA; the port has one protocol driver.
+fold_chains_pool is the Dynamics sampler's fold: one decoy per chain,
+each chain with its own restraint tables, built on the device from the
+sampler's histograms (physics/tablegen.py) over one shared pair list per
+term (compact.UnionStage); its energy evaluations launch the kernel's
+lanes entry once each. The host chain fold (fold_chains, per-lane pair
+lists) and the in-loop repacking switch (REPACK_IN_LOOP, off in JAX) are
+not ported. JAX's single-program driver (staged_execution=False,
+_protocol_jit) is a compile strategy of XLA; the port has one protocol
+driver.
 """
 from __future__ import annotations
 
@@ -44,15 +50,19 @@ from trx2dy_torch.device import resolve_device
 from trx2dy_torch.geometry.nerf import build_backbone
 from trx2dy_torch.geometry.transforms import backbone_torsions, dihedral
 from trx2dy_torch.physics.cartmin import (
-    cartesian_refine_compact, cartesian_relax_block,
+    cartesian_refine_compact, cartesian_refine_lanes, cartesian_relax_block,
 )
-from trx2dy_torch.physics.compact import compact_restraints, compact_to
+from trx2dy_torch.physics.compact import (
+    UnionStage, _bucket as _pair_bucket, compact_restraints, compact_to,
+    union_stage, union_take_lanes,
+)
 from trx2dy_torch.physics.energy import (
     SCOREFXN1, SCOREFXN_CART, SCOREFXN_CENT, SCOREFXN_VDW, EnergyWeights,
-    batched_energy_weighted_compact, weights_to_vec,
+    batched_energy_weighted_compact, batched_energy_weighted_union,
+    weights_to_vec,
 )
 from trx2dy_torch.physics.minimize import (
-    host_numpy, lbfgs_init, lbfgs_run, state_gather,
+    host_numpy, host_sync, lbfgs_init, lbfgs_run, state_gather,
 )
 from trx2dy_torch.physics.restraints import (
     FoldParams, RestraintMasks, RestraintSet, add_disulfide_restraints,
@@ -92,6 +102,12 @@ NONMONOTONE_WINDOW = 0
 # L-BFGS iterations per chunk of a stage; converged lanes are repacked at
 # chunk boundaries
 STAGE_CHUNK = 250
+
+# pair-list margin of fold_chains_pool on top of the dampening-proxy
+# count (tablegen count row 1): the proxy models one dampening step, later
+# steps drift ~1 % further (measured in JAX), so the chain steps keep one
+# set of shapes; the bucket_floors ratchet stays as the backstop
+GROWTH_HEADROOM = 1.08
 
 # converged-lane repacking: once the active lanes fit in half the batch,
 # repack them into the next power-of-2 bucket (at least COMPACT_MIN_BATCH),
@@ -224,9 +240,11 @@ def _protocol_staged(x0, stages, max_iter: int, dist_on_ca: bool = False,
     cartesian block between them when cart_r1.
 
     stages, relax1, relax2: compacted pair lists on the device
-    (compact_to), each built once per fold. stage_log, if given, receives
-    (label, iterations, wall_s) per stage. Returns (x, final centroid
-    energies)."""
+    (compact_to), each built once per fold, or the sampler's union stages
+    (compact.union_stage, per-lane tables; converged-lane repacking then
+    gathers the surviving lanes' tables and activity too). stage_log, if
+    given, receives (label, iterations, wall_s) per stage. Returns (x,
+    final centroid energies)."""
     dev = x0.device
     B = x0.shape[0]
     no_freeze = torch.zeros((B,), dtype=torch.bool, device=dev)
@@ -238,9 +256,14 @@ def _protocol_staged(x0, stages, max_iter: int, dist_on_ca: bool = False,
         SCOREFXN_VDW, SCOREFXN_CENT, SCOREFXN_CART, SCOREFXN1))
 
     def energy(cr, w):
-        def fun(xx):
-            return batched_energy_weighted_compact(xx, cr, w, dist_on_ca,
-                                                   res_mask)
+        if isinstance(cr, UnionStage):
+            def fun(xx):
+                return batched_energy_weighted_union(xx, cr, w, dist_on_ca,
+                                                     res_mask)
+        else:
+            def fun(xx):
+                return batched_energy_weighted_compact(xx, cr, w,
+                                                       dist_on_ca, res_mask)
         return fun
 
     def stage(x, cr, w, freeze=no_freeze, iters=None, label="stage"):
@@ -269,6 +292,11 @@ def _protocol_staged(x0, stages, max_iter: int, dist_on_ca: bool = False,
                     sel = np.concatenate([act, pad])
                     st = state_gather(st, sel)
                     lane = lane[torch.as_tensor(sel, device=dev)]
+                    if isinstance(cr, UnionStage):
+                        # per-lane tables follow their lanes, on the device
+                        cr = union_stage(*union_take_lanes(cr.ur, cr.acts,
+                                                           sel))
+                        fun = energy(cr, w)
         x_full[lane] = st.x
         if stage_log is not None:
             stage_log.append((label, st.k,
@@ -447,3 +475,116 @@ def fold_ensemble(npz: dict, seq: str,
     if L_true < L:
         atoms = {k: v[:, :L_true] for k, v in atoms.items()}
     return FoldResult(torsions=t[:, :, :L_true], energy=f, atoms=atoms)
+
+
+def fold_chains_pool(pool: dict, lane_map, seq: str,
+                     generator: Optional[torch.Generator] = None,
+                     mode: int = 2, use_orient: bool = True,
+                     fastrelax: bool = True, pcut: Optional[float] = None,
+                     params: FoldParams = FoldParams(),
+                     max_iter: int = 1000, candidates: int = 1,
+                     detect_disulf: bool = True,
+                     bucket_floors: Optional[dict] = None,
+                     cart_refine: bool = True,
+                     lane_bucket: Optional[int] = None, res_mask=None,
+                     true_len: Optional[int] = None, x0=None,
+                     timings: Optional[dict] = None,
+                     stage_log: Optional[list] = None,
+                     growth_buckets: bool = False) -> FoldResult:
+    """One decoy per chain from a pool of histograms on the device, the
+    Dynamics sampler's fold (folder.py:888-1010). The restraint tables are
+    built on the pool's device by physics/tablegen.py: one shared union
+    pair list per term with per-lane tables (compact.UnionStage).
+
+    pool: 'dist'/'omega'/'theta'/'phi' lane-stacked (U, L, L, nbins)
+    tensors, already padded where length bucketing is used (pass res_mask
+    and true_len then). lane_map: (K,) chain k folds from pool row
+    lane_map[k]. candidates: lanes folded per chain, the lowest final
+    energy kept. lane_bucket: pad the folded lanes to this count by
+    repeating the last. bucket_floors: caller-owned {"all": {term: P}},
+    ratcheted so later calls keep the pair-list sizes. growth_buckets: size
+    the pair lists from the dampening-proxy counts (the driver's chain
+    steps) rather than the counts as given (its initial fold). timings, if
+    given, receives the wall seconds of the counts, the tables, the
+    protocol and the cartesian refinement. generator seeds the torsion
+    init (x0 None); x0 (C' <= C, 3, L) start torsions, the last repeated.
+
+    The host reads the 4 counts, the energies for the candidate pick and
+    what the caller reads of the decoys. Mode 3, idp and gpcr targets need
+    the host chain fold, which is not ported."""
+    from trx2dy_torch.physics.tablegen import NAMES, union_compiler
+
+    dev = pool["dist"].device
+    L = len(seq)
+    lane_map = np.asarray(lane_map, np.int64)
+    K = len(lane_map)
+    reps = candidates if candidates > 1 else 1
+    fan = np.repeat(lane_map, reps)
+    n_real = len(fan)
+    if lane_bucket is not None and lane_bucket > n_real:
+        fan = np.concatenate([fan, np.full(lane_bucket - n_real, fan[-1])])
+    C = len(fan)
+
+    tm = {} if timings is None else timings
+    t0 = time.perf_counter()
+    comp = union_compiler(seq, params, mode, pcut, use_orient,
+                          detect_disulf, dev)
+    count_rows = host_numpy(comp.count(pool))
+    counts = count_rows[1] if growth_buckets else count_rows[0]
+    tm["t_counts"] = round(time.perf_counter() - t0, 3)
+    fl = (bucket_floors.setdefault("all", {})
+          if bucket_floors is not None else {})
+    P = tuple(
+        max(_pair_bucket(int(np.ceil(c * (1.0 if n in fl else
+                                          GROWTH_HEADROOM)))),
+            fl.get(n, 0))
+        for n, c in zip(NAMES, counts))
+    for n, p_t in zip(NAMES, P):
+        fl[n] = max(fl.get(n, 0), p_t)
+
+    t0 = time.perf_counter()
+    ur, stage_acts, r1_acts, r2_acts = comp.compile(pool, fan, P)
+    # each protocol stage's tables checked once for this step
+    stages = [union_stage(ur, a) for a in stage_acts]
+    relax = (union_stage(ur, r1_acts), union_stage(ur, r2_acts)) \
+        if fastrelax else None
+    host_sync(dev)
+    tm["t_tables"] = round(time.perf_counter() - t0, 3)
+
+    if x0 is None:
+        x0 = random_torsions(generator, L, C)
+    x0 = torch.as_tensor(np.asarray(x0) if not torch.is_tensor(x0) else x0,
+                         dtype=torch.float32).to(dev)
+    if x0.shape[0] < C:
+        x0 = torch.cat([x0, x0[-1:].expand((C - x0.shape[0],)
+                                           + x0.shape[1:])])
+    x0 = x0.reshape(C, 3 * L)
+
+    t0 = time.perf_counter()
+    x, f = _protocol_staged(x0, stages, max_iter, res_mask=res_mask,
+                            stage_log=stage_log, relax=relax,
+                            cart_r1=cart_refine and fastrelax)
+    host_sync(dev)
+    tm["t_protocol"] = round(time.perf_counter() - t0, 3)
+    t_all = x.reshape(C, 3, L)
+    with torch.no_grad():
+        atoms = build_backbone(t_all[:, 0], t_all[:, 1], t_all[:, 2])
+    if cart_refine and fastrelax:
+        # over every bucketed lane, before the candidate pick, each lane
+        # against its own relax round-2 tables
+        t0 = time.perf_counter()
+        atoms, _ = cartesian_refine_lanes(
+            atoms, relax[1], SCOREFXN_RELAX, max_iter=CART_REFINE_ITERS,
+            res_mask=res_mask, stage_log=stage_log)
+        host_sync(dev)
+        tm["t_cart"] = round(time.perf_counter() - t0, 3)
+    if reps > 1:
+        f_np = host_numpy(f)[:n_real].reshape(K, reps)
+        pick = np.arange(K) * reps + np.argmin(f_np, axis=1)
+    else:
+        pick = np.arange(K)
+    pick = torch.as_tensor(pick, device=dev)
+    L_true = L if true_len is None else true_len
+    return FoldResult(torsions=t_all[pick][:, :, :L_true], energy=f[pick],
+                      atoms={k: v[pick][:, :L_true]
+                             for k, v in atoms.items()})

@@ -70,6 +70,14 @@ def host_numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
+def host_sync(device) -> None:
+    """Wait for the device's queued work (to time a phase): one sync,
+    counted; nothing to wait for on the CPU."""
+    STATS.syncs += 1
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 class LBFGSResult(NamedTuple):
     x: torch.Tensor          # (B, D) final parameters
     f: torch.Tensor          # (B,) final energies

@@ -196,3 +196,26 @@ def masked_spline_energy_pb(y, m, x, q, mask):
     """Per-decoy masked spline energy over pair-major queries: y/m (P, K),
     q (P, B), mask (P,) bool -> (B,). Differentiable in q only."""
     return _MaskedSplineEnergyPB.apply(y, m, x, q, mask)
+
+
+class _MaskedSplineEnergyLanes(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, m, x, q, mask):
+        val, der = evaluate_spline_with_deriv(SplineTable(x, y, m), q)
+        zero = torch.zeros((), dtype=q.dtype, device=q.device)
+        ctx.save_for_backward(torch.where(mask, der, zero))
+        return torch.sum(torch.where(mask, val, zero), dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        (der,) = ctx.saved_tensors
+        return None, None, None, g[..., None] * der, None
+
+
+def masked_spline_energy_lanes(y, m, x, q, mask):
+    """Per-lane masked spline energy, each lane with its own tables and
+    active set: y/m (M, P, K), x (K,), q/mask (M, P) -> (M,) sums over each
+    lane's active pairs. Differentiable in q only, by a one-multiply
+    backward. The sampler's kernel path (ops.spline_energy_lanes) takes the
+    same tables pair-major."""
+    return _MaskedSplineEnergyLanes.apply(y, m, x, q, mask)
