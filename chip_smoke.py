@@ -18,10 +18,13 @@ Phases; any failure exits non-zero and no phase is skipped:
      an (L, L, H) array); the spline restraint energy's dense entry at
      (B, L) = (50, 150) and (3, 37), its fused pair entry, all four knot
      grids in one launch, at the bucketed pair counts of a full L=150 mask
-     with B=50, and its lanes entry (per-lane tables from the sampler's
-     table compiler) at the bucketed pair counts of a full union with
-     C=32 lanes at L=150 and at phase 6's L=64, with queries below, on
-     and above the knots;
+     with B=50, and its lanes entry (tables from the sampler's table
+     compiler, stored once per used pool row behind a lane -> row map) at
+     the bucketed pair counts of a full union with C=32 lanes at L=150
+     and at phase 6's L=64, each at three lane maps (8 rows in turn,
+     the initial fold's, a chain step's), with queries below, on and above
+     the knots, bit-identical on a repeat and to the same tables expanded
+     to one row per lane;
   4. the main path, first half: the geometry stage (a3m -> features ->
      Predictor2D at full width, depth 12, random seeded weights ->
      pred_npz for both models) answers three requests at L = 64, 256, 400
@@ -49,8 +52,8 @@ Phases; any failure exits non-zero and no phase is skipped:
      on the card (FOLD_START_TOL); request (b) is refolded on the plain
      path, final energy medians within FOLD_MEDIAN_TOL; a repeated
      evaluation must be bit-identical (the fold is deterministic). One
-     L-BFGS chunk each of the centroid, relax and cartesian energies is
-     profiled;
+     L-BFGS chunk (PROFILE_ITERS iterations) each of the centroid, relax
+     and cartesian energies is profiled;
   6. the whole pipeline, run_single through its CLI
      (python -m trx2dy_torch.cli.run_inference with --fasta, --msa,
      --model_dir, --save_dir, --name and --Nmax RUN_NMAX, every other flag
@@ -63,7 +66,8 @@ Phases; any failure exits non-zero and no phase is skipped:
      initial decoys, compiled as the driver compiles them) the first
      energy and gradient held to the plain spline path (FOLD_START_TOL), a
      repeated evaluation bit-identical, the dampened histograms normalised
-     on the dampened pairs (DAMPEN_NORM_TOL). The initial fold's and each
+     on the dampened pairs (DAMPEN_NORM_TOL), and one L-BFGS chunk of
+     that energy profiled (the union chunk). The initial fold's and each
      step's wall (fold, emit, measure), decoys per minute, evaluations, ms
      per evaluation, host syncs per step and peak memory are printed;
   7. a `kernels` JSON line, then {"ok": true, "device": {...}} last.
@@ -118,7 +122,10 @@ FOLD_START_TOL = 1e-4      # first energy and gradient, kernel vs plain path
 # 3.8 % (means 1.6 %) in a deterministic run of this script (PERF.md)
 FOLD_MEDIAN_TOL = 0.10
 RESCORE_TOL = 1e-4         # dense-entry rescoring vs the fold's energies
-PROFILE_ITERS = 250        # one STAGE_CHUNK
+# L-BFGS iterations of a profiled chunk (the cartesian block's first
+# stage; a centroid STAGE_CHUNK is 250): processing the trace of 250
+# centroid iterations (~500k kernel events) took ~100 s of host time
+PROFILE_ITERS = 50
 # the JAX package's refinement bands (tests/test_physics.py:489-507,
 # 842-860), held on the inputs of those tests (refine_band_phase)
 CA_CA_BAND = (2.7, 4.2)    # consecutive CA-CA distances (A)
@@ -449,92 +456,152 @@ def spline_kernel_phase(dev, peaks):
     print("spline " + json.dumps(row), flush=True)
     rows.append(row)
     for L in (SPLINE_SHAPES[0][1], CLI_L):     # the smoke's L and phase 6's
-        rows.append(spline_lanes_check(dev, peaks, on, compare, L))
+        rows += spline_lanes_check(dev, peaks, on, compare, L)
     return rows
 
 
-def spline_lanes_bound_ms(P: int, C: int, n_active: int, K: int,
-                          peaks) -> tuple[float, str]:
+def lane_maps(C: int = CHAIN_LANES) -> dict:
+    """The lanes entry's lane -> pool-row maps over a pool of 2 x 8 chain
+    histograms: 8 rows in turn (cyclic); the initial fold's (each
+    model's first chain fanned out to 13 lanes, padded to C with the last,
+    driver.py's init_map through folder.fold_chains_pool); a chain step's
+    (16 chains x 2 candidates)."""
+    init = np.repeat([0, 8], 13)
+    return {
+        "cyclic": np.arange(C) % 8,
+        "initial": np.concatenate([init, np.full(C - len(init), init[-1])]),
+        "chain": np.repeat(np.arange(16), C // 16),
+    }
+
+
+def distinct_intervals(x: np.ndarray, U: int, row: np.ndarray,
+                       q: np.ndarray, act: np.ndarray) -> int:
+    """Distinct (pair, table row, interval) of the active queries q (P, C):
+    the float4 table entries this data needs (clip(#{x[:K-1] <= q} - 1, 0,
+    K-2), the kernel's interval)."""
+    K = len(x)
+    k = np.clip(np.searchsorted(x[:K - 1], q, side="right") - 1, 0, K - 2)
+    p = np.broadcast_to(np.arange(q.shape[0])[:, None], q.shape)
+    key = (p * U + row[None, :]).astype(np.int64) * (K - 1) + k
+    return int(np.unique(key[act]).size)
+
+
+def spline_lanes_bound_ms(P: int, C: int, n_active: int, n_tab: int, K: int,
+                          peaks) -> tuple[float, str, float]:
     """Least time for one term of the lanes entry: each (pair, lane)'s
-    query and activity read and derivative written once, and for each
-    active one the four table values of its interval (what this data
-    needs of the (P, C, K) tables); knots and sums; SPLINE_FLOPS float32
-    operations per active query."""
-    nbytes = 9.0 * P * C + 16.0 * n_active + 4.0 * K + 4.0 * C
+    query and activity read and derivative written once, the lane -> row
+    map, knots and sums, and 16 bytes for each distinct (pair, row,
+    interval) an active query touches (n_tab, what this data needs of the
+    stored tables); SPLINE_FLOPS float32 operations per active query.
+    Returns (bound, what bounds it, the per-query byte bound, which counts 16
+    bytes per active query, the per-lane tables' need)."""
+    fixed = 9.0 * P * C + 4.0 * K + 4.0 * C
     t_ops = SPLINE_FLOPS * n_active / peaks[0]
-    t_bytes = nbytes / peaks[1]
+    t_bytes = (fixed + 4.0 * C + 16.0 * n_tab) / peaks[1]
+    t_query = (fixed + 16.0 * n_active) / peaks[1]
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops > t_bytes \
-        else "bytes"
+        else "bytes", 1e3 * max(t_ops, t_query)
 
 
-def spline_lanes_check(dev, peaks, on, compare, L: int) -> dict:
-    """The lanes entry against a float64 plain version: per-lane tables
-    of C=CHAIN_LANES lanes from the sampler's table compiler over random
-    histograms of length L (a full union, the bucketed pair counts), the
-    relax round-2 activity thinned at random per lane, all four grids in
-    one launch."""
+def spline_lanes_check(dev, peaks, on, compare, L: int) -> list:
+    """The lanes entry against a float64 plain version at each lane map
+    (lane_maps): tables from the sampler's table compiler over 16 random
+    histograms of length L (a full union, the bucketed pair counts) for
+    C=CHAIN_LANES lanes, the relax round-2 activity thinned at random per
+    lane, queries below, on and above the knots, all four grids in one
+    launch. Each launch is bit-identical on a repeat and to a launch over
+    the tables expanded to one row per lane under the identity map."""
     from trx2dy_torch.ops.spline_energy import (
-        SplineLanes, _lanes_fwd, spline_energy_lanes, spline_lanes_plain,
+        SplineLanes, _lanes_fwd, expand_lane_tables, spline_energy_lanes,
+        spline_lanes_plain,
     )
     from trx2dy_torch.physics.compact import _bucket
     from trx2dy_torch.physics.spline import SplineTable, \
         evaluate_spline_with_deriv
     from trx2dy_torch.physics.tablegen import union_compiler
 
-    C, U = CHAIN_LANES, 8
+    C, U = CHAIN_LANES, 16
     hists = [random_histograms(L, seed=L + u) for u in range(U)]
     pool = {k: on(np.stack([h[k] for h in hists])) for k in GRIDS}
+    del hists
     comp = union_compiler("A" * L, device=dev)
     counts = comp.count(pool)[0].tolist()
     P = tuple(_bucket(int(c)) for c in counts)
-    ur, _, _, r2 = comp.compile(pool, np.arange(C) % U, P)
-    rng = np.random.default_rng(5)
-    terms, qs, active = [], [], []
-    for t, a in zip(ur, r2):
-        act = (a & on(rng.random(tuple(a.shape)) < 0.8)).contiguous()
-        terms.append((t.y, t.m, t.x, act))
-        x = t.x.cpu().numpy()
-        qs.append(on(edge_queries(x, (t.y.shape[0], C), seed=len(x) + 7,
-                                  pair_major=True)))
-        active.append(int(act.sum()))
-    tables = SplineLanes(terms)
-    before = spline_energy_lanes.launches
-    sums, derivs = _lanes_fwd(tables, qs)
-    torch.cuda.synchronize()
-    check(spline_energy_lanes.launches == before + 1,
-          "spline lanes: launch counter did not advance")
-    terms64 = [(y.double(), m.double(), x.double(), act)
-               for y, m, x, act in terms]
-    ref_sums, ref_derivs = spline_lanes_plain(terms64,
-                                              [q.double() for q in qs])
-    row = {"entry": "lanes", "grids": list(GRIDS), "C": C, "L": L,
-           "P": list(P), "K": [t[2].shape[0] for t in terms],
-           "active": active, "sum_rel_err": [], "deriv_err": [],
-           "max_abs_err": 0.0}
-    for n, grid in enumerate(GRIDS):
-        y, m, x, act = terms64[n]
-        val, _ = evaluate_spline_with_deriv(SplineTable(x, y, m),
-                                            qs[n].double())
-        abs_sums = torch.where(act, val.abs(), 0.0).sum(dim=0)
-        errs = compare(f"spline lanes {grid} P={P[n]} C={C}", sums[n],
-                       derivs[n], ref_sums[n], ref_derivs[n], abs_sums)
-        row["sum_rel_err"].append(errs[0])
-        row["deriv_err"].append(errs[1])
-        row["max_abs_err"] = max(row["max_abs_err"], errs[2])
-    sums2, derivs2 = _lanes_fwd(tables, qs)
-    check(torch.equal(sums, sums2) and all(
-        torch.equal(a, b) for a, b in zip(derivs, derivs2)),
-        "spline lanes: a repeated launch is not bit-identical")
-    row.update(spline_times(lambda: _lanes_fwd(tables, qs),
-                            lambda: spline_lanes_plain(terms, qs),
-                            "spline_pairs_kernel"))
-    bounds = [spline_lanes_bound_ms(P_t, C, n_act, t[2].shape[0], peaks)
-              for P_t, n_act, t in zip(P, active, terms)]
-    row["bound_ms"] = sum(b for b, _ in bounds)
-    row["bound_by"] = "bytes" if all(by == "bytes" for _, by in bounds) \
-        else "operations"
-    print("spline " + json.dumps(row), flush=True)
-    return row
+    rows = []
+    for name, lane_map in lane_maps(C).items():
+        ur, _, _, r2 = comp.compile(pool, lane_map, P)
+        rng = np.random.default_rng(5)
+        terms, qs, active, n_tab = [], [], [], []
+        for t, a in zip(ur, r2):
+            act = (a & on(rng.random(tuple(a.shape)) < 0.8)).contiguous()
+            terms.append((t.tab, t.row, t.x, act))
+            x = t.x.cpu().numpy()
+            q = edge_queries(x, (t.tab.shape[0], C), seed=len(x) + 7,
+                             pair_major=True)
+            qs.append(on(q))
+            act_np = act.cpu().numpy()
+            active.append(int(act_np.sum()))
+            n_tab.append(distinct_intervals(x, t.tab.shape[1],
+                                            t.row.cpu().numpy(), q, act_np))
+        tables = SplineLanes(terms)
+        before = spline_energy_lanes.launches
+        sums, derivs = _lanes_fwd(tables, qs)
+        torch.cuda.synchronize()
+        check(spline_energy_lanes.launches == before + 1,
+              "spline lanes: launch counter did not advance")
+        terms64 = [(tab.double(), row, x.double(), act)
+                   for tab, row, x, act in terms]
+        qs64 = [q.double() for q in qs]
+        ref_sums, ref_derivs = spline_lanes_plain(terms64, qs64)
+        row = {"entry": "lanes", "map": name, "grids": list(GRIDS), "C": C,
+               "L": L, "P": list(P), "K": [t[2].shape[0] for t in terms],
+               "rows": ur.dist.tab.shape[1],
+               "table_mb": sum(t.tab.numel() * 4 for t in ur) / 1e6,
+               "active": active, "distinct_intervals": n_tab,
+               "sum_rel_err": [], "deriv_err": [], "max_abs_err": 0.0}
+        for n, grid in enumerate(GRIDS):
+            tab, lane_row, x, act = terms64[n]
+            y, m = expand_lane_tables(tab, lane_row)
+            val, _ = evaluate_spline_with_deriv(SplineTable(x, y, m),
+                                                qs64[n])
+            abs_sums = torch.where(act, val.abs(), 0.0).sum(dim=0)
+            del y, m, val
+            errs = compare(f"spline lanes {name} {grid} L={L} C={C}",
+                           sums[n], derivs[n], ref_sums[n], ref_derivs[n],
+                           abs_sums)
+            row["sum_rel_err"].append(errs[0])
+            row["deriv_err"].append(errs[1])
+            row["max_abs_err"] = max(row["max_abs_err"], errs[2])
+        del terms64, qs64, ref_sums, ref_derivs
+        sums2, derivs2 = _lanes_fwd(tables, qs)
+        check(torch.equal(sums, sums2) and all(
+            torch.equal(a, b) for a, b in zip(derivs, derivs2)),
+            f"spline lanes {name} L={L}: a repeated launch is not "
+            "bit-identical")
+        ident = torch.arange(C, dtype=torch.int32, device=dev)
+        expanded = SplineLanes([
+            (tab.index_select(1, row.long()).contiguous(), ident, x, act)
+            for tab, row, x, act in terms])
+        sums3, derivs3 = _lanes_fwd(expanded, qs)
+        check(torch.equal(sums, sums3) and all(
+            torch.equal(a, b) for a, b in zip(derivs, derivs3)),
+            f"spline lanes {name} L={L}: the identity map over expanded "
+            "tables is not bit-identical to the shared-row launch")
+        del expanded, sums3, derivs3
+        row.update(spline_times(lambda: _lanes_fwd(tables, qs),
+                                lambda: spline_lanes_plain(terms, qs),
+                                "spline_pairs_kernel"))
+        bounds = [spline_lanes_bound_ms(P_t, C, n_act, n_t, t[2].shape[0],
+                                        peaks)
+                  for P_t, n_act, n_t, t in zip(P, active, n_tab, terms)]
+        row["bound_ms"] = sum(b[0] for b in bounds)
+        row["bound_by"] = "bytes" if all(b[1] == "bytes" for b in bounds) \
+            else "operations"
+        row["bound_ms_per_query"] = sum(b[2] for b in bounds)
+        print("spline " + json.dumps(row), flush=True)
+        rows.append(row)
+        del ur, r2, terms, tables
+    return rows
 
 
 # --------------------------------------------------------------------------
@@ -731,8 +798,10 @@ def start_torsions(seed: int, L: int, B: int, dev):
 @contextlib.contextmanager
 def plain_splines():
     """The fold's and the sampler's restraint splines on their plain
-    PyTorch versions (the lanes entry's per JAX's lane-major layout)."""
+    PyTorch versions (the lanes entry's per JAX's lane-major layout, its
+    tables expanded to one per lane)."""
     import trx2dy_torch.physics.compact as compact
+    from trx2dy_torch.ops.spline_energy import expand_lane_tables
     from trx2dy_torch.physics.spline import masked_spline_energy_lanes, \
         masked_spline_energy_pb
 
@@ -741,9 +810,12 @@ def plain_splines():
                             for (y, m, x, act), q in zip(tables.terms, qs)])
 
     def plain_lanes(tables, qs):
-        return torch.stack([masked_spline_energy_lanes(
-            y.transpose(0, 1), m.transpose(0, 1), x, q.T, act.T)
-            for (y, m, x, act), q in zip(tables.terms, qs)])
+        out = []
+        for (tab, row, x, act), q in zip(tables.terms, qs):
+            y, m = expand_lane_tables(tab, row)
+            out.append(masked_spline_energy_lanes(
+                y.transpose(0, 1), m.transpose(0, 1), x, q.T, act.T))
+        return torch.stack(out)
     kernels = compact.spline_energy_pairs, compact.spline_energy_lanes
     compact.spline_energy_pairs = plain
     compact.spline_energy_lanes = plain_lanes
@@ -996,9 +1068,7 @@ def fold_phase(dev, work: Path, npz_b: str, seq_b: str):
     from trx2dy_torch.physics import cartmin
     from trx2dy_torch.physics.energy import batched_energy_fused
     from trx2dy_torch.geometry.nerf import build_backbone
-    from trx2dy_torch.physics.folder import (
-        CART_SCHEDULE_R1, RELAX_SCHEDULE_R1, fold_ensemble,
-    )
+    from trx2dy_torch.physics.folder import fold_ensemble
     from trx2dy_torch.physics.restraints import masks_to, tables_to
 
     # (a) the headline: synthetic compact target, L=150, 50 decoys, the
@@ -1143,10 +1213,9 @@ def fold_phase(dev, work: Path, npz_b: str, seq_b: str):
                   f"{path}: {name} differs from the fold's atoms")
 
     profs = [profile_chunk(energy_a, x0_a, dev),
-             profile_chunk(relax_a, x0_a, dev, RELAX_SCHEDULE_R1[0][2],
-                           "relax"),
+             profile_chunk(relax_a, x0_a, dev, label="relax"),
              profile_chunk(cart_a, torch.zeros_like(delta).to(dev), dev,
-                           CART_SCHEDULE_R1[0][2], "cartesian")]
+                           label="cartesian")]
     return [req_a, req_b, req_c], profs
 
 
@@ -1293,6 +1362,7 @@ def run_single_phase(dev, work: Path, a3m: Path, model_dir: Path,
     e_r, g_r = value_and_grad(fun, x0)
     check(torch.equal(e_k, e_r) and torch.equal(g_k, g_r),
           "chain step: a repeated energy evaluation is not bit-identical")
+    out["union_profile"] = profile_chunk(fun, x0, dev, label="union")
     return out
 
 
@@ -1331,8 +1401,8 @@ def kernel_summary(kernel_rows, spline_rows, launches: int, folds,
     main_dense = [r for r in dense if r["B"] == B and r["L"] == L]
     total = lambda k: sum(r[k] for r in main_dense)
     pairs = next(r for r in spline_rows if r["entry"] == "pairs")
-    lanes, lanes64 = (next(r for r in spline_rows if r["entry"] == "lanes"
-                           and r["L"] == n) for n in (L, CLI_L))
+    lanes_rows = [r for r in spline_rows if r["entry"] == "lanes"]
+    lanes = next(r for r in lanes_rows if r["L"] == L and r["map"] == "chain")
     common = {"route": "cuda", "source": "trx2dy_torch/csrc/spline_energy.cu",
               "replaces": "trx2dy/ops/spline_energy.py:27",
               "library_ms": None,
@@ -1371,24 +1441,28 @@ def kernel_summary(kernel_rows, spline_rows, launches: int, folds,
         "replaces": "trx2dy/ops/spline_energy.py:27 (the sampler's "
                     "per-lane tables, trx2dy/physics/spline.py:289)",
         "launches": (run_single or {}).get("spline_lanes_launches", 0),
-        "max_abs_err": lanes["max_abs_err"],
+        "max_abs_err": max(r["max_abs_err"] for r in lanes_rows),
         "ms": lanes["kernel_ms"],
         "kernel_ms": lanes["kernel_ms"],
         "wrapper_ms": lanes["wrapper_ms"],
         "plain_ms": lanes["plain_ms"],
         "bound_ms": lanes["bound_ms"],
         "bound_by": lanes["bound_by"],
-        "kernel_ms_L64": lanes64["kernel_ms"],
-        "wrapper_ms_L64": lanes64["wrapper_ms"],
-        "bound_ms_L64": lanes64["bound_ms"],
+        "bound_ms_per_query": lanes["bound_ms_per_query"],
+        "per_map": [{k: r[k] for k in (
+            "L", "map", "rows", "table_mb", "kernel_ms", "wrapper_ms",
+            "plain_ms", "bound_ms", "bound_ms_per_query", "max_abs_err")}
+            for r in lanes_rows],
         "shape": f"C={lanes['C']}, L={L}, P="
                  + "/".join(str(P) for P in lanes["P"])
-                 + ", f32 per-lane tables (P, C, K); one launch for the four "
-                   "knot grids (one energy evaluation of the sampler); the "
-                   "bound counts the four table values of each active "
-                   "query's interval; *_L64: at L=64, P="
-                 + "/".join(str(P) for P in lanes64["P"])
-                 + ", phase 6's shapes",
+                 + ", f32 interval tables (P, U', K-1, 4) of the chain "
+                   "step's map (16 rows x 2 candidates); one launch for the "
+                   "four knot grids (one energy evaluation of the sampler); "
+                   "bound_ms counts 16 B per distinct (pair, row, interval) "
+                   "an active query touches, bound_ms_per_query 16 B per "
+                   "active query; per_map: every map (cyclic: 8 rows in turn, "
+                   "initial: 2 rows x 13 lanes padded, chain) at L=150 and "
+                   "phase 6's L=64",
     })
     return kernels
 

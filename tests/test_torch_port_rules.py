@@ -1,8 +1,9 @@
 """Rules of the PyTorch port that no parity test shows.
 
 - Nothing in trx2dy_torch/ or chip_smoke.py imports jax or trx2dy.
-- Entry points default to CUDA and raise where there is none, rather than
-  carrying on on the CPU; they switch TF32 off.
+- Entry points (the geometry stage, the fold, packing, run_single and the
+  CLIs) default to CUDA and raise where there is none, before writing
+  anything, rather than carrying on on the CPU; they switch TF32 off.
 - chip_smoke.py fails, printing no result, without a CUDA device and in a
   directory that holds nothing else of the repo.
 """
@@ -18,8 +19,11 @@ import pytest
 import torch
 
 from trx2dy_torch.cli import fold as fold_cli
+from trx2dy_torch.cli import run_inference as run_inference_cli
 from trx2dy_torch.device import resolve_device
-from trx2dy_torch.dynamics.driver import geometry_stage
+from trx2dy_torch.dynamics.driver import (
+    DynamicsConfig, geometry_stage, run_single,
+)
 from trx2dy_torch.models.predictor2d_infer import pred_2d_geometry
 from trx2dy_torch.physics.folder import fold_ensemble
 from trx2dy_torch.physics.sidechain import pack_ensemble
@@ -66,6 +70,24 @@ def test_fold_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     assert not (tmp_path / "d.pdb").exists()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         pack_ensemble(np.zeros((1, 3, 4), np.float32), "AAAA")
+
+
+def test_pipeline_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """run_single and the run_inference CLI refuse before any work: nothing
+    is written under the save directory."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fasta = tmp_path / "t.fasta"
+    fasta.write_text(">t\nAAAA\n")
+    save = tmp_path / "out"
+    save.mkdir()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_single("t", str(fasta), None, str(save), DynamicsConfig())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_inference_cli.main(["--fasta", str(fasta), "--msa",
+                                str(tmp_path / "t.a3m"), "--name", "t",
+                                "--save_dir", str(save), "--model_dir",
+                                str(tmp_path / "models")])
+    assert list(save.iterdir()) == []
 
 
 def test_resolve_device_turns_tf32_off(monkeypatch):

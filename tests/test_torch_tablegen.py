@@ -4,11 +4,13 @@ on the CPU.
 
 The inputs are tests/test_tablegen.py's: `_rand_npz` histograms from
 numpy seeds at the same sequences, lengths and bucket sizes, so the JAX
-programs are the ones that test compiles. The port's tables and activity
-are pair-major, (P, C, K) and (P, C); JAX's lane-major, (C, P, K) and
-(C, P): the comparisons transpose. Counts, pair lists and activity are
-compared exactly; tables y within 1e-5 of their largest value, m within
-1e-5 of the float32 scale of its product (float32). The union energies
+programs are the ones that test compiles. The port stores a term's tables
+once per used pool row as pair-major interval tables (P, U', K-1, 4) with a
+(C,) lane -> row map, and the activity per lane as (P, C); JAX holds
+per-lane tables lane-major, (C, P, K) and (C, P): the comparisons expand
+the port's tables with the map and transpose. Counts, pair lists and
+activity are compared exactly; tables y within 1e-5 of their largest
+value, m within 1e-5 of the float32 scale of its product (float32). The union energies
 are held on JAX's own tables (so only the energy differs): values in
 float32 within 1e-5, gradients in float64 within 1e-8 (as
 tests/test_torch_energy.py holds the batched energies).
@@ -73,10 +75,10 @@ CASES = {
 }
 
 
-def _compile_both(case, use_orient=True, lanes_per_row=2):
+def _compile_both(case, use_orient=True, lanes_per_row=2, lane_map=None):
     """Both packages' (count rows, compiled tables) of a case, at the
     as-given counts' buckets, each pool row fanned out to lanes_per_row
-    lanes."""
+    lanes (or the lanes of lane_map)."""
     seq, npzs, mode, ss = CASES[case]
     npzs = npzs()
     jc = jtablegen.union_compiler(seq, JFoldParams(), mode, None, use_orient,
@@ -88,7 +90,8 @@ def _compile_both(case, use_orient=True, lanes_per_row=2):
              for k in NAMES}
     jrows, trows = np.asarray(jc.count(jpool)), tc.count(tpool).numpy()
     P = tuple(jcompact._bucket(int(c)) for c in jrows[0])
-    lane_map = np.repeat(np.arange(len(npzs)), lanes_per_row)
+    if lane_map is None:
+        lane_map = np.repeat(np.arange(len(npzs)), lanes_per_row)
     jout = jc.compile(jpool, jnp.asarray(lane_map, jnp.int32), P)
     tout = tc.compile(tpool, lane_map, P)
     return (jrows, trows), jout, tout
@@ -124,12 +127,16 @@ def test_tables_match_jax(case):
     """y within TABLE_TOL of the term's largest |y|; m = y @ op elementwise
     within TABLE_TOL of |y| @ |op| (both packages round the product in
     float32: the disulfide well's y reaches ~2.5e3 where its m is ~20)."""
-    _, (jur, *_), (tur, *_) = _compile_both(case)
+    _check_tables(*_compile_both(case)[1:])
+
+
+def _check_tables(jout, tout):
+    (jur, *_), (tur, *_) = jout, tout
     for name in NAMES:
         jt, tt = getattr(jur, name), getattr(tur, name)
         y_ref = np.asarray(jt.y).transpose(1, 0, 2)
         m_ref = np.asarray(jt.m).transpose(1, 0, 2)
-        y, m = tt.y.numpy(), tt.m.numpy()
+        y, m = (a.numpy() for a in tops.expand_lane_tables(tt.tab, tt.row))
         assert y.shape == y_ref.shape and m.shape == m_ref.shape
         assert np.abs(y - y_ref).max() <= TABLE_TOL * np.abs(y_ref).max()
         op = tspline._second_derivative_operator(
@@ -138,12 +145,28 @@ def test_tables_match_jax(case):
         assert (np.abs(m - m_ref) <= TABLE_TOL * scale).all(), name
 
 
+def test_initial_fold_map_builds_only_the_rows_it_uses():
+    """The initial fold's lane map fans few pool rows out to many lanes
+    (driver.py: 13 lanes a model, padded with the last): 2 rows over 8
+    lanes, with a pool row between them unused, build 2 table rows, and
+    expanded with the map they are JAX's per-lane tables."""
+    lane_map = np.array([0, 0, 0, 2, 2, 2, 2, 2])
+    _, jout, tout = _compile_both("three_lanes", lane_map=lane_map)
+    for name in NAMES:
+        t = getattr(tout[0], name)
+        assert t.tab.shape[1] == 2
+        assert t.tab.shape[2:] == (t.x.shape[0] - 1, 4)
+        assert t.row.dtype == torch.int32
+        assert t.row.tolist() == [0, 0, 0, 1, 1, 1, 1, 1]
+    _check_tables(jout, tout)
+
+
 def test_no_orient_tables_are_flat():
     (jrows, trows), (jur, jst, *_), (tur, tst, *_) = _compile_both(
         "plain", use_orient=False)
     assert np.array_equal(trows, jrows)
     for name in NAMES[1:]:
-        assert not getattr(tur, name).y.any()
+        assert not getattr(tur, name).tab.any()
         assert not getattr(tst[0], name).any()
         assert not np.asarray(getattr(jst[0], name)).any()
     assert np.array_equal(tst[0].dist.numpy().T, np.asarray(jst[0].dist))
@@ -209,8 +232,9 @@ def test_spline_lanes_plain_matches_masked_spline_energy_lanes():
     for seed in range(4):
         y, m, x, q, mask = (torch.from_numpy(a)
                             for a in _lanes_inputs(seed + 5, P=30 + seed))
-        terms.append((y.transpose(0, 1).contiguous(),
-                      m.transpose(0, 1).contiguous(), x,
+        terms.append((tops.interval_tables(y.transpose(0, 1),
+                                           m.transpose(0, 1)),
+                      torch.arange(y.shape[0], dtype=torch.int32), x,
                       mask.T.contiguous()))
         qs.append(q.T.contiguous())
         ref.append(tspline.masked_spline_energy_lanes(y, m, x, q, mask))
@@ -226,37 +250,109 @@ def test_spline_lanes_plain_matches_masked_spline_energy_lanes():
         assert torch.equal(q.grad, d)
 
 
+def _expanded_plain(terms, qs):
+    """The per-lane plain evaluation (evaluate_spline_with_deriv over
+    (P, C, K) tables, the lanes entry's plain version before its tables
+    were stored per row) on the expansion of row-mapped terms."""
+    sums, derivs = [], []
+    for (tab, row, x, act), q in zip(terms, qs):
+        y, m = tops.expand_lane_tables(tab, row)
+        val, der = tspline.evaluate_spline_with_deriv(
+            tspline.SplineTable(x, y, m), q)
+        sums.append(torch.where(act, val, 0.0).sum(dim=0))
+        derivs.append(torch.where(act, der, 0.0))
+    return torch.stack(sums), derivs
+
+
+@pytest.mark.parametrize("row_map", ["repeated", "identity"])
+def test_spline_lanes_plain_row_map_matches_expanded_tables(row_map):
+    """The plain lanes version over U' row tables and a lane -> row map
+    equals, bit for bit, the per-lane plain version over the tables the
+    map expands to: queries below x[0], at and above x[K-1], lanes that
+    share rows, and masked lanes whose table holds inf or NaN."""
+    C, P = 6, 24
+    rows = np.array([0, 0, 2, 1, 2, 2]) if row_map == "repeated" \
+        else np.arange(C)
+    row = torch.as_tensor(rows, dtype=torch.int32)
+    on_1 = torch.as_tensor(rows == 1)       # the lanes reading row 1
+    terms, qs = [], []
+    for seed in (20, 21):
+        y, m, x, _, _ = (torch.from_numpy(a) for a in _lanes_inputs(
+            seed, M=int(rows.max()) + 1, P=P))
+        tab = tops.interval_tables(y.transpose(0, 1), m.transpose(0, 1))
+        rng = np.random.default_rng(seed)
+        q = rng.uniform(x[0] - 1.0, x[-1] + 1.0, (P, C)).astype(np.float32)
+        q[:3] = np.array([x[0] - 0.5, x[-1], x[-1] + 0.5],
+                         np.float32)[:, None]
+        act = torch.from_numpy(rng.random((P, C)) < 0.7)
+        # pairs 5..7 of row 1 hold NaN and inf; every lane on row 1 is
+        # masked there
+        act[5:8] &= ~on_1
+        tab[5, 1] = float("nan")
+        tab[6, 1, :, 0] = float("inf")
+        tab[7, 1, :, 3] = -float("inf")
+        terms.append((tab, row, x, act))
+        qs.append(torch.from_numpy(q))
+    sums, derivs = tops.spline_lanes_plain(terms, qs)
+    ref_sums, ref_derivs = _expanded_plain(terms, qs)
+    assert bool(torch.isfinite(sums).all())
+    assert torch.equal(sums, ref_sums)
+    for d, r in zip(derivs, ref_derivs):
+        assert bool(torch.isfinite(d).all()) and torch.equal(d, r)
+
+
 def test_spline_lanes_rejects_malformed_tables():
     y, m, x, q, mask = (torch.from_numpy(a) for a in _lanes_inputs(2))
-    good = (y.transpose(0, 1).contiguous(), m.transpose(0, 1).contiguous(),
-            x, mask.T.contiguous())
+    tab = tops.interval_tables(y.transpose(0, 1), m.transpose(0, 1))
+    row = torch.arange(y.shape[0], dtype=torch.int32)
+    act = mask.T.contiguous()
+    good = (tab, row, x, act)
     tops.SplineLanes([good])
+    misaligned = torch.empty(tab.numel() + 1).narrow(0, 1, tab.numel()) \
+        .view(tab.shape)
     bad = [
-        (y, m, x, mask.T.contiguous()),                  # lane-major y/m
-        good[:3] + (mask.contiguous(),),                 # act (C, P)
-        good[:3] + (good[3].float(),),                   # act not bool
-        (good[0].transpose(0, 1), good[1], x, good[3]),  # not contiguous
-        (good[0], good[1], torch.zeros(1), good[3]),     # one knot
+        (y.transpose(0, 1).contiguous(), row, x, act),   # (P, C, K) y
+        (tab, row, x, mask.contiguous()),                # act (C, P)
+        (tab, row, x, act.float()),                      # act not bool
+        (tab, row.long(), x, act),                       # map not int32
+        (tab, row[:2], x, act),                          # map of 2 lanes
+        (tab.transpose(0, 1), row, x, act),              # not contiguous
+        (tab, row, torch.zeros(1), act),                 # one knot
+        (misaligned, row, x, act),                       # not 16-B aligned
     ]
     for terms in bad:
         with pytest.raises(ValueError):
             tops.SplineLanes([terms])
-    other_c = (good[0][:, :2].contiguous(), good[1][:, :2].contiguous(), x,
-               good[3][:, :2].contiguous())
+    other_c = (tab, row[:2].contiguous(), x, act[:, :2].contiguous())
     with pytest.raises(ValueError):
         tops.SplineLanes([good, other_c])                # two lane counts
 
 
 def test_union_take_lanes_matches_compiling_those_lanes():
+    """Repacking lanes selects from the lane -> row map and the activity
+    only, the tables stay where they are, and the taken lanes' energies
+    are those of compiling those lanes."""
     _, _, (tur, tst, *_) = _compile_both("three_lanes", lanes_per_row=1)
     sel = [2, 0]
     ur, acts = tcompact.union_take_lanes(tur, tst[0], sel)
-    _, _, (ref, rst, *_) = _compile_both("three_lanes", lanes_per_row=1)
+    _, _, (ref, rst, *_) = _compile_both("three_lanes",
+                                         lane_map=np.array(sel))
     for name in NAMES:
-        t, r = getattr(ur, name), getattr(ref, name)
-        assert torch.equal(t.y, r.y[:, sel]) and torch.equal(t.m, r.m[:, sel])
+        t, full, r = getattr(ur, name), getattr(tur, name), getattr(ref, name)
+        assert t.tab is full.tab and t.i is full.i and t.x is full.x
+        assert torch.equal(t.row, full.row[sel])
         assert torch.equal(t.i.idx, r.i.idx)
-        assert torch.equal(getattr(acts, name), getattr(rst[0], name)[:, sel])
+        assert torch.equal(getattr(acts, name), getattr(rst[0], name))
+        for a, b in zip(tops.expand_lane_tables(t.tab, t.row),
+                        tops.expand_lane_tables(r.tab, r.row)):
+            assert torch.allclose(a, b, rtol=1e-6, atol=1e-6)
+    w = torch.as_tensor(tenergy.weights_to_vec(tenergy.SCOREFXN_CENT))
+    x = torch.as_tensor(_torsions(2, 16, seed=3), dtype=torch.float32)
+    e = tenergy.batched_energy_weighted_union(
+        x, tcompact.union_stage(ur, acts), w)
+    e_ref = tenergy.batched_energy_weighted_union(
+        x, tcompact.union_stage(ref, rst[0]), w)
+    assert torch.allclose(e, e_ref, rtol=VALUE_TOL, atol=0.0)
 
 
 def _torsions(M, L, seed):
@@ -268,16 +364,19 @@ def _torsions(M, L, seed):
 
 
 def _port_stage(jur, jacts, dtype):
-    """JAX's compiled union tables as the port's stage (pair-major, the
-    pair lists as device rows), in dtype."""
+    """JAX's compiled union tables as the port's stage (pair-major interval
+    tables, one row per lane under the identity map, the pair lists as
+    device rows), in dtype."""
     terms = []
     for t in jur:
         L = 1 + int(max(np.asarray(t.i).max(), np.asarray(t.j).max()))
+        y, m = (torch.as_tensor(np.asarray(a).transpose(1, 0, 2).copy(),
+                                dtype=dtype) for a in (t.y, t.m))
         terms.append(tcompact.UnionTerm(
             i=tcompact._rows(np.array(t.i), L, "cpu"),
             j=tcompact._rows(np.array(t.j), L, "cpu"),
-            **{f: torch.as_tensor(np.asarray(getattr(t, f)).transpose(1, 0, 2)
-                                  .copy(), dtype=dtype) for f in ("y", "m")},
+            tab=tops.interval_tables(y, m),
+            row=torch.arange(y.shape[1], dtype=torch.int32),
             x=torch.as_tensor(np.array(t.x), dtype=dtype)))
     acts = tcompact.UnionActs(*(torch.from_numpy(np.asarray(a).T.copy())
                                 for a in jacts))

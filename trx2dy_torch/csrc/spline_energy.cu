@@ -17,22 +17,28 @@
 //          fold evaluates (trx2dy/physics/spline.py:_eval_with_deriv_pb via
 //          compact.compact_restraint_energy_batch). One launch per energy
 //          evaluation writes every term's deriv and the (n_terms, B) sums.
-//   lanes  the pair entry with per-lane tables: each of up to four terms
-//          y, m (P_t, B, K_t), x (K_t), act (P_t, B), q (P_t, B), the
-//          Dynamics sampler's shared pair list with a table and an activity
-//          per lane (trx2dy/physics/spline.py:masked_spline_energy_lanes via
-//          compact.compact_restraint_energy_union). Tables and activity are
-//          pair-major like the queries, so lane b of pair p reads
-//          y[(p*B + b)*K + k] and act[p*B + b], and neighbouring threads
-//          read neighbouring q, act and deriv elements. One launch per
-//          energy evaluation, as for the pair entry.
+//   lanes  the pair entry with per-lane tables behind a lane -> row map:
+//          each of up to four terms has tab (P_t, U_t, K_t - 1, 4), row
+//          (B,), x (K_t), act (P_t, B), q (P_t, B), the Dynamics sampler's
+//          shared pair list (trx2dy/physics/spline.py:
+//          masked_spline_energy_lanes via
+//          compact.compact_restraint_energy_union). The U_t table rows are
+//          the distinct pool rows (histograms) the fold's lanes use; lane b
+//          reads row[b]. Each interval k of a row is one float4
+//          (y[k], y[k+1], m[k], m[k+1]). One launch per energy evaluation,
+//          as for the pair entry.
 //
-// What bounds it on an H100: per query it reads q and 4 table values and
-// writes one derivative, with ~40 flops, far below the 67 TFLOP/s f32 rate,
-// so it is bound by bytes: one evaluation of the fold at L=150, B=50 moves
-// ~44 MB (q, deriv, the table rows), about 13 us at 3.35 TB/s. The lanes
-// entry reads four table values per (pair, lane) from tables B times as
-// large; at a full L=150 union with B=32 it needs ~59 MB, about 18 us.
+// What bounds it on an H100: per query it reads q, an activity byte and one
+// interval's four table values and writes one derivative, with ~40 flops,
+// far below the 67 TFLOP/s f32 rate, so it is bound by bytes: one
+// evaluation of the fold at L=150, B=50 moves ~44 MB (q, deriv, the table
+// rows), about 13 us at 3.35 TB/s. The lanes entry moves q, act and deriv
+// per (pair, lane), 9 bytes, and 16 bytes per distinct (pair, row,
+// interval) its active queries touch: at a full L=150 union with B=32 that
+// is ~10-40 MB by the lane map, 3-12 us; at L=64 under 3 us, where the
+// launch's latency chain (activity and query, interval search, table
+// load, derivative store, two fenced rendezvous for the sums) and not the
+// bytes is what it waits on.
 //
 // Dense design: knots go to shared memory once per block; each thread finds
 // its interval by binary search over at most 64 knots (not the TPU kernel's
@@ -40,8 +46,8 @@
 // the K-contiguous row; each block writes one fixed-order partial per decoy.
 //
 // Pair and lanes design (one kernel body, LANES a template flag that only
-// changes the table row and activity index), for launch count and latency
-// rather than bytes:
+// changes the table load and the activity index), for launch count and
+// latency rather than bytes:
 //  - one launch for all terms: the x-blocks are split among the terms in
 //    order, each block walks `nit` tiles of PAIR_ELEMS x R consecutive
 //    pairs of one term, with nit chosen on the host so that the grid is
@@ -53,13 +59,24 @@
 //  - a thread starts the loads of all its PAIR_ELEMS elements before it uses
 //    any; the interval search is branch-free over the knots padded to 64
 //    with +inf in shared memory (6 steps), and queries outside the knots
-//    read the first or last interval, so every element makes the same four
-//    table loads with no divergent branch;
+//    read the first or last interval, so every element makes the same
+//    table load with no divergent branch;
+//  - lanes: the sampler folds a few lanes per histogram (the initial fold
+//    32 lanes from 2 histograms, a chain step 32 lanes from 16), so the
+//    tables are stored once per used pool row, not once per lane: 2-16x
+//    fewer table bytes, and the initial fold's tables fit the 50 MB L2 at
+//    L=64. A thread reads its lane's row once before its loop; the lanes
+//    of a warp (one pair, consecutive lanes) that share a row and an
+//    interval read one address, which the hardware serves once;
+//  - lanes: the four values an interval needs are one aligned float4, one
+//    16-byte load from one sector where the per-lane y, m rows took four
+//    scalar loads from two arrays (~2.25 sectors per query); the values
+//    feed the same expressions, so the results are the per-lane layout's;
 //  - each interval's 1/h, h/6 and h*h/6 are computed once per block into
 //    shared memory, so an element does no division (1/h times a value is
 //    within an ulp or two of the plain version's division);
 //  - offsets are 32-bit: the entry refuses terms with P*B or P*K >= 2^31,
-//    and the lanes entry terms with P*B*K >= 2^31;
+//    and the lanes entry terms with P*U*(K-1)*4 >= 2^31;
 //  - the per-decoy sum is finished in the kernel, deterministically, in two
 //    levels so that no block sums more than a few values per decoy: each
 //    block writes its fixed-order partials; the last block of each group of
@@ -68,6 +85,9 @@
 //    group to finish sums every term's group partials in group order into
 //    (n_terms, B). The order of every sum is fixed, so repeated launches
 //    are bit-identical.
+// A cp.async prefetch of the next tile's q and act into shared memory was
+// measured against this design (scripts/kernel_variants.py) and left out:
+// it gained nothing (PERF.md section 6).
 // A masked element is never evaluated and gives 0 and 0, so an inf or NaN
 // there never leaks (the plain version selects, with the same result).
 
@@ -76,15 +96,18 @@
 #include <stdint.h>
 
 // One term's stage constants as the host holds them (ctypes mirrors it).
-// The lanes entry's tables are per lane: y, m (P, B, K), act (P, B).
+// The lanes entry's y is the interval table tab (P, U, K-1, 4), 16-byte
+// aligned, m is unused, act is (P, B) and row (B,) maps each lane to its
+// table row; the pair entry leaves row null and U 0.
 struct PairTerm {
-  const float* y;          // (P, K)
-  const float* m;          // (P, K)
+  const float* y;          // (P, K); lanes: tab (P, U, K-1, 4)
+  const float* m;          // (P, K); lanes: unused
   const float* x;          // (K,)
-  const uint8_t* act;      // (P,)
+  const uint8_t* act;      // (P,); lanes: (P, B)
+  const int* row;          // lanes: (B,) lane -> table row in [0, U)
   long long P;
   int K;
-  int pad_;
+  int U;                   // lanes: table rows
 };
 
 namespace {
@@ -193,10 +216,12 @@ struct PairLaunch {        // the kernel's parameter block, passed by value;
   const float* m[MAX_TERMS];     // that it stays in the parameter bank
   const float* x[MAX_TERMS];
   const uint8_t* act[MAX_TERMS];
+  const int* row[MAX_TERMS];     // lanes: (B,) lane -> table row
   const float* q[MAX_TERMS];     // (P_t, B)
   float* deriv[MAX_TERMS];       // (P_t, B)
   long long P[MAX_TERMS];
   int K[MAX_TERMS];
+  int U[MAX_TERMS];              // lanes: table rows
   int block0[MAX_TERMS + 1];     // first x-block of each term; unused = end
   int group0[MAX_TERMS + 1];     // first group of each term; unused = end
   int n_terms;
@@ -320,6 +345,12 @@ spline_pairs_kernel(const PairLaunch a) {
     const uint8_t* __restrict__ act = pick(a.act, ti);
     const float* __restrict__ q = pick(a.q, ti);
     float* __restrict__ deriv = pick(a.deriv, ti);
+    // lanes: this lane's first float4 of pair 0; pair p adds p * pstride
+    const float4* __restrict__ tab =
+        LANES ? reinterpret_cast<const float4*>(y) +
+                    pick(a.row, ti)[b] * (K - 1)
+              : nullptr;
+    const int pstride = LANES ? pick(a.U, ti) * (K - 1) : 0;
     const int tile = R * PAIR_ELEMS;
     const int first = (bx - b0) * a.nit * tile + r;
     const int last = min(first - r + a.nit * tile, P);
@@ -339,11 +370,19 @@ spline_pairs_kernel(const PairLaunch a) {
       for (int e = 0; e < PAIR_ELEMS; ++e) {
         k[e] = min(max(count_le(xs, qv[e]) - 1, 0), K - 2);
         const int pr = on[e] ? p0 + e * R : 0;
-        const int row = (LANES ? pr * B + b : pr) * K + k[e];
-        ya[e] = y[row];
-        yb[e] = y[row + 1];
-        ma[e] = m[row];
-        mb[e] = m[row + 1];
+        if (LANES) {           // one 16-byte load: y[k], y[k+1], m[k], m[k+1]
+          const float4 v = __ldg(tab + pr * pstride + k[e]);
+          ya[e] = v.x;
+          yb[e] = v.y;
+          ma[e] = v.z;
+          mb[e] = v.w;
+        } else {
+          const int row = pr * K + k[e];
+          ya[e] = y[row];
+          yb[e] = y[row + 1];
+          ma[e] = m[row];
+          mb[e] = m[row + 1];
+        }
       }
 #pragma unroll
       for (int e = 0; e < PAIR_ELEMS; ++e) {
@@ -451,7 +490,8 @@ long long pair_blocks(const PairTerm* terms, int n_terms, int B, int nit,
 // (n_terms, B), each term's deriv (P_t, B), the (n_blocks, B) and
 // (n_groups, B) partials) and, in *counters, the unsigned ints of the
 // launch's counters; -1 where the terms or B are out of range. `lanes`
-// adds the per-lane tables' bound on P*B*K.
+// adds the interval tables' checks: a row map, U >= 1, a 16-byte aligned
+// table and P*U*(K-1)*4 < 2^31.
 long long pairs_buffer(const PairTerm* terms, int n_terms, int B, int device,
                        long long* counters, bool lanes) {
   if (n_terms < 1 || n_terms > MAX_TERMS || B <= 0 ||
@@ -459,11 +499,15 @@ long long pairs_buffer(const PairTerm* terms, int n_terms, int B, int device,
     return -1;
   long long n = (long long)n_terms * B;
   for (int t = 0; t < n_terms; ++t) {
-    if (terms[t].P <= 0 || terms[t].K < 2 || terms[t].K > MAX_K ||
-        terms[t].P * B >= 0x7fffffffLL || terms[t].P * MAX_K >= 0x7fffffffLL ||
-        (lanes && terms[t].P * B * terms[t].K >= 0x7fffffffLL))
+    const PairTerm& tt = terms[t];
+    if (tt.P <= 0 || tt.K < 2 || tt.K > MAX_K || tt.P * B >= 0x7fffffffLL ||
+        tt.P * MAX_K >= 0x7fffffffLL)
       return -1;
-    n += terms[t].P * B;
+    if (lanes && (tt.row == nullptr || tt.U < 1 ||
+                  reinterpret_cast<uintptr_t>(tt.y) % 16 != 0 ||
+                  tt.P * tt.U * (tt.K - 1) * 4 >= 0x7fffffffLL))
+      return -1;
+    n += tt.P * B;
   }
   long long groups = 0;
   const int nit = pair_tiles_per_block(terms, n_terms, B, device);
@@ -496,8 +540,10 @@ int pairs_launch(const PairTerm* terms, int n_terms, const float* const* q,
     a.m[t] = terms[t].m;
     a.x[t] = terms[t].x;
     a.act[t] = terms[t].act;
+    a.row[t] = terms[t].row;
     a.P[t] = terms[t].P;
     a.K[t] = terms[t].K;
+    a.U[t] = terms[t].U;
     a.q[t] = q[t];
     a.deriv[t] = next;
     next += terms[t].P * B;
@@ -569,8 +615,9 @@ extern "C" int trx2dy_spline_pairs(const PairTerm* terms, int n_terms,
                       false);
 }
 
-// The lanes entry: as the pair entry, with per-lane tables y, m
-// (P_t, B, K_t) and activity (P_t, B) in `terms`.
+// The lanes entry: as the pair entry, with each term's interval table
+// (P_t, U_t, K_t - 1, 4) in y, its lane -> row map (B,) in row, U_t in U
+// and activity (P_t, B) in `terms`.
 extern "C" long long trx2dy_spline_lanes_buffer(const PairTerm* terms,
                                                 int n_terms, int B,
                                                 int device,

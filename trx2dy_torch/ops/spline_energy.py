@@ -17,14 +17,19 @@ Three entry points:
       (compact.compact_restraint_energy_batch); compact.compact_to builds
       the SplinePairs once per stage, which is where the tables are checked.
   spline_energy_lanes(tables, qs)        tables: SplineLanes of up to four
-      terms, each with per-lane tables y, m (P_t, C, K_t), x (K_t,) and
-      act (P_t, C) bool; qs: one (P_t, C) query tensor per term ->
-      (n_terms, C), one launch for all terms. The Dynamics sampler's shared
-      pair list with per-lane tables (compact.compact_restraint_energy_union,
-      the port of spline.masked_spline_energy_lanes). Tables and activity
-      are pair-major like the queries, the layout physics/tablegen.py
-      emits, so no evaluation transposes anything; compact.union_stage
-      builds the SplineLanes once per protocol stage of a sampler step.
+      terms, each an interval table tab (P_t, U_t, K_t - 1, 4), a lane ->
+      row map row (C,) int32, x (K_t,) and act (P_t, C) bool; qs: one
+      (P_t, C) query tensor per term -> (n_terms, C), one launch for all
+      terms. The Dynamics sampler's shared pair list with a table per lane
+      (compact.compact_restraint_energy_union, the port of
+      spline.masked_spline_energy_lanes): lane c of pair p evaluates
+      tab[p, row[c]], so lanes folded from one histogram share one stored
+      table. Interval k of a table row holds (y[k], y[k+1], m[k], m[k+1])
+      (interval_tables), which the kernel reads as one 16-byte load.
+      Tables, activity and queries are pair-major, the layout
+      physics/tablegen.py emits, so no evaluation transposes anything;
+      compact.union_stage builds the SplineLanes once per protocol stage
+      of a sampler step.
 
 Knots have K <= 64 and tensors are float32 on the card. A CPU tensor takes
 the plain version (the port of spline.evaluate_spline_with_deriv or
@@ -39,7 +44,8 @@ import ctypes
 import torch
 
 from trx2dy_torch.physics.spline import (
-    SplineTable, _eval_with_deriv_pb, evaluate_spline_with_deriv,
+    SplineTable, _cubic, _eval_with_deriv_pb, _interval,
+    evaluate_spline_with_deriv,
 )
 
 MAX_K = 64
@@ -67,12 +73,45 @@ def spline_pairs_plain(terms, qs):
     return torch.stack(sums), tuple(derivs)
 
 
+def interval_tables(y: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """The lanes entry's storage of spline tables y, m (..., K): (..., K-1,
+    4) with interval k holding (y[k], y[k+1], m[k], m[k+1]), contiguous."""
+    return torch.stack([y[..., :-1], y[..., 1:], m[..., :-1], m[..., 1:]],
+                       dim=-1).contiguous()
+
+
+def expand_lane_tables(tab: torch.Tensor, row: torch.Tensor):
+    """Per-lane y, m (P, C, K) of an interval table tab (P, U, K-1, 4) under
+    the lane -> row map row (C,): the layout the lanes entry no longer
+    stores, for comparisons."""
+    t = tab.index_select(1, row.to(torch.int64))
+    y = torch.cat([t[..., 0], t[..., -1:, 1]], dim=-1)
+    m = torch.cat([t[..., 2], t[..., -1:, 3]], dim=-1)
+    return y, m
+
+
 def spline_lanes_plain(terms, qs):
     """(per-lane masked sums (n_terms, C), each term's masked deriv
-    (P_t, C)) in PyTorch; terms holds per-lane (y, m, x, act) per term."""
+    (P_t, C)) in PyTorch; terms holds (tab, row, x, act) per term. Each
+    query gathers its interval's four values from tab[p, row[c]] (queries
+    outside the knots the first or last interval, whose values give the
+    boundary slope) and evaluates them as evaluate_spline_with_deriv does
+    per-lane tables, with the same result to the bit."""
     sums, derivs = [], []
-    for (y, m, x, act), q in zip(terms, qs):
-        val, der = evaluate_spline_with_deriv(SplineTable(x, y, m), q)
+    for (tab, row, x, act), q in zip(terms, qs):
+        P, U, n, _ = tab.shape
+        k = _interval(x, q)                                   # (P, C)
+        at = (torch.arange(P, device=q.device)[:, None] * U
+              + row.to(torch.int64)) * n + k
+        ya, yb, ma, mb = tab.reshape(-1, 4)[at].unbind(-1)
+        val, der = _cubic(q, x[k], x[k + 1], ya, yb, ma, mb)
+        h0, hn = x[1] - x[0], x[-1] - x[-2]
+        slope_lo = (yb - ya) / h0 - h0 * (2.0 * ma + mb) / 6.0
+        slope_hi = (yb - ya) / hn + hn * (ma + 2.0 * mb) / 6.0
+        lo, hi = q < x[0], q > x[-1]
+        val = torch.where(lo, ya + slope_lo * (q - x[0]), torch.where(
+            hi, yb + slope_hi * (q - x[-1]), val))
+        der = torch.where(lo, slope_lo, torch.where(hi, slope_hi, der))
         zero = torch.zeros((), dtype=q.dtype, device=q.device)
         sums.append(torch.sum(torch.where(act, val, zero), dim=0))
         derivs.append(torch.where(act, der, zero))
@@ -83,8 +122,8 @@ class _PairTerm(ctypes.Structure):
     """csrc/spline_energy.cu:PairTerm, one term's stage constants."""
     _fields_ = [("y", ctypes.c_void_p), ("m", ctypes.c_void_p),
                 ("x", ctypes.c_void_p), ("act", ctypes.c_void_p),
-                ("P", ctypes.c_longlong), ("K", ctypes.c_int),
-                ("pad_", ctypes.c_int)]
+                ("row", ctypes.c_void_p), ("P", ctypes.c_longlong),
+                ("K", ctypes.c_int), ("U", ctypes.c_int)]
 
 
 def _lib():
@@ -109,41 +148,57 @@ def _lib():
 
 def _check_tables(terms, entry: str = "spline_energy_pairs",
                   lanes: bool = False) -> None:
-    """Raise ValueError unless `terms` are 1..MAX_TERMS tuples (y, m, x,
-    act) that the entry takes: knots x (K,) with 2 <= K <= MAX_K, tables
-    y, m (P, K) of the knots' floating dtype (float32 on a CUDA device),
-    act (P,) bool, all contiguous and on one device. With lanes, the
-    per-lane tables y, m (P, C, K) and act (P, C), one C for all terms."""
+    """Raise ValueError unless `terms` are 1..MAX_TERMS tuples that the
+    entry takes, all contiguous and on one device, of the knots' floating
+    dtype (float32 on a CUDA device): knots x (K,) with 2 <= K <= MAX_K;
+    for the pair entry (y, m, x, act) with tables y, m (P, K) and act (P,)
+    bool; with lanes (tab, row, x, act) with a 16-byte aligned interval
+    table tab (P, U, K-1, 4), a lane -> row map row (C,) int32 and act
+    (P, C) bool, one C for all terms. The map's values must lie in
+    [0, U): tablegen.compile and compact.union_take_lanes make it so, and
+    reading it here would cost a host sync."""
     if not 1 <= len(terms) <= MAX_TERMS:
         raise ValueError(f"{entry}: 1 to {MAX_TERMS} terms, "
                          f"got {len(terms)}")
     dev = terms[0][0].device
-    C = terms[0][0].shape[1] if lanes and terms[0][0].dim() == 3 else 0
-    for n, (y, m, x, act) in enumerate(terms):
+    C = terms[0][1].shape[0] if lanes and terms[0][1].dim() == 1 else 0
+    for n, (a, b, x, act) in enumerate(terms):
         name = f"{entry} term {n}"
         K = x.shape[0] if x.dim() == 1 else -1
         if not 2 <= K <= MAX_K:
             raise ValueError(f"{name}: knots must be (K,) with 2 <= K <= "
                              f"{MAX_K}, got {tuple(x.shape)}")
-        P = y.shape[0] if y.dim() == (3 if lanes else 2) else 0
-        lead = (P, C) if lanes else (P,)
-        for tname, t, shape in (("y", y, lead + (K,)), ("m", m, lead + (K,)),
-                                ("act", act, lead)):
-            if P < 1 or (lanes and C < 1) or tuple(t.shape) != shape:
+        if lanes:
+            P = a.shape[0] if a.dim() == 4 else 0
+            U = a.shape[1] if a.dim() == 4 else 0
+            shapes = (("tab", a, (P, U, K - 1, 4)), ("row", b, (C,)),
+                      ("act", act, (P, C)))
+            dtypes = (("tab", a, x.dtype), ("row", b, torch.int32))
+        else:
+            P = a.shape[0] if a.dim() == 2 else 0
+            U = 1
+            shapes = (("y", a, (P, K)), ("m", b, (P, K)), ("act", act, (P,)))
+            dtypes = (("y", a, x.dtype), ("m", b, x.dtype))
+        for tname, t, shape in shapes:
+            if P < 1 or U < 1 or (lanes and C < 1) or \
+                    tuple(t.shape) != shape:
                 raise ValueError(f"{name}: {tname} must be {shape} with "
-                                 f"P >= 1, got {tuple(t.shape)}")
+                                 f"P, U, C >= 1, got {tuple(t.shape)}")
         ok = (torch.float32,) if dev.type == "cuda" else (torch.float32,
                                                           torch.float64)
         if x.dtype not in ok:
             raise ValueError(f"{name}: tables must be one of {ok} on {dev}, "
                              f"got {x.dtype}")
-        for tname, t in (("y", y), ("m", m), ("x", x), ("act", act)):
-            want = torch.bool if tname == "act" else x.dtype
+        for tname, t, want in dtypes + (("x", x, x.dtype),
+                                        ("act", act, torch.bool)):
             if t.device != dev or t.dtype != want:
                 raise ValueError(f"{name}: {tname} must be {want} on {dev}, "
                                  f"got {t.dtype} on {t.device}")
             if not t.is_contiguous():
                 raise ValueError(f"{name}: {tname} must be contiguous")
+        if lanes and a.data_ptr() % 16:
+            raise ValueError(f"{name}: tab must be 16-byte aligned (one "
+                             "float4 per interval)")
 
 
 class SplinePairs:
@@ -167,11 +222,14 @@ class SplinePairs:
     def _launch_constants(self, lib):
         if self._c is None:
             self._c = (_PairTerm * len(self.terms))(*(
-                _PairTerm(y.data_ptr(), m.data_ptr(), x.data_ptr(),
-                          act.data_ptr(), y.shape[0], x.shape[0], 0)
-                for y, m, x, act in self.terms))
+                self._pair_term(*t) for t in self.terms))
             self._qptrs = (ctypes.c_void_p * len(self.terms))()
         return self._c
+
+    @staticmethod
+    def _pair_term(y, m, x, act):
+        return _PairTerm(y.data_ptr(), m.data_ptr(), x.data_ptr(),
+                         act.data_ptr(), None, y.shape[0], x.shape[0], 0)
 
     def _parts(self, lib, B: int):
         """For B decoys: the sizes of the work buffer's parts (sums, each
@@ -192,17 +250,24 @@ class SplinePairs:
 
 
 class SplineLanes(SplinePairs):
-    """The stage constants of the lanes entry: per term the per-lane
-    (y, m, x, act), y, m (P, C, K) and act (P, C), checked once when built
-    (compact.union_stage builds one per protocol stage of a sampler step).
-    Its queries must have C lanes."""
+    """The stage constants of the lanes entry: per term (tab, row, x, act),
+    an interval table tab (P, U, K-1, 4), its lane -> row map row (C,)
+    int32 and act (P, C), checked once when built (compact.union_stage
+    builds one per protocol stage of a sampler step). Its queries must
+    have C lanes."""
 
     entry = "spline_energy_lanes"
     lanes = True
 
     def __init__(self, terms):
         super().__init__(terms)
-        self.n_lanes = self.terms[0][0].shape[1]
+        self.n_lanes = self.terms[0][1].shape[0]
+
+    @staticmethod
+    def _pair_term(tab, row, x, act):
+        return _PairTerm(tab.data_ptr(), None, x.data_ptr(), act.data_ptr(),
+                         row.data_ptr(), tab.shape[0], x.shape[0],
+                         tab.shape[1])
 
 
 _counters: dict = {}    # device index -> the pair entry's counters

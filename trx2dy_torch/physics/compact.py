@@ -10,11 +10,13 @@ kernel's pair entry (ops.spline_energy_pairs) in one launch per energy
 evaluation; compact_to checks the stage's tables for it once.
 
 The sampler's union form (UnionRestraints, built on the device by
-physics/tablegen.py) shares one pair list per term among all lanes, with
-per-lane tables and activity, laid out pair-major: y, m (P, C, K), acts
-(P, C). Its splines run through the kernel's lanes entry
-(ops.spline_energy_lanes), one launch per evaluation; union_stage checks a
-protocol stage's tables for it once per sampler step.
+physics/tablegen.py) shares one pair list per term among all lanes, with a
+table and an activity per lane, laid out pair-major: the tables are stored
+once per pool row the lanes fold from, as interval tables tab (P, U, K-1,
+4) behind a lane -> row map row (C,), and acts are (P, C). Its splines run
+through the kernel's lanes entry (ops.spline_energy_lanes), one launch per
+evaluation; union_stage checks a protocol stage's tables for it once per
+sampler step.
 
 Atoms are gathered by index: JAX's one-hot product at Precision.HIGHEST
 (compact.py:427-431) is an exact gather chosen for the TPU's matrix unit,
@@ -228,12 +230,14 @@ def compact_restraint_energy_batch(atoms_b: dict, cr: CompactRestraints,
 
 class UnionTerm(NamedTuple):
     """One restraint term of the sampler: a pair list shared by every lane
-    (the union of the lanes' active pairs) with per-lane tables, pair-major
-    (compact.py:294-325 holds y, m lane-major as (C, P, K))."""
+    (the union of the lanes' active pairs) with a table per lane, stored
+    once per used pool row (compact.py:294-325 holds y, m lane-major per
+    lane as (C, P, K); ops.spline_energy.expand_lane_tables gives that
+    back)."""
     i: Rows               # (P,) residue index i, shared across lanes
     j: Rows               # (P,) residue index j
-    y: torch.Tensor       # (P, C, K) per-lane spline values
-    m: torch.Tensor       # (P, C, K) per-lane second derivatives
+    tab: torch.Tensor     # (P, U, K-1, 4) interval tables of the U rows
+    row: torch.Tensor     # (C,) int32 lane -> table row
     x: torch.Tensor       # (K,) shared knots
 
 
@@ -265,16 +269,15 @@ def union_stage(ur: UnionRestraints, acts: UnionActs) -> UnionStage:
     """The stage with its SplineLanes, which checks the tables (once per
     stage of a sampler step, not per evaluation)."""
     return UnionStage(ur, acts, SplineLanes(
-        (t.y, t.m, t.x, a) for t, a in zip(ur, acts)))
+        (t.tab, t.row, t.x, a) for t, a in zip(ur, acts)))
 
 
 def union_take_lanes(ur: UnionRestraints, acts: UnionActs, sel):
     """The surviving lanes sel of the tables and activity (the folder's
-    converged-lane repacking): only y, m and act carry the lane axis; the
-    pair lists and knots are shared."""
-    sel = torch.as_tensor(sel, dtype=torch.int64, device=ur.dist.y.device)
-    terms = [t._replace(y=t.y.index_select(1, sel),
-                        m=t.m.index_select(1, sel)) for t in ur]
+    converged-lane repacking): only the lane -> row map and act carry the
+    lane axis; the tables, pair lists and knots are shared."""
+    sel = torch.as_tensor(sel, dtype=torch.int64, device=ur.dist.row.device)
+    terms = [t._replace(row=t.row.index_select(0, sel)) for t in ur]
     return (UnionRestraints(*terms),
             UnionActs(*[a.index_select(1, sel) for a in acts]))
 

@@ -242,7 +242,7 @@ def _protocol_staged(x0, stages, max_iter: int, dist_on_ca: bool = False,
     stages, relax1, relax2: compacted pair lists on the device
     (compact_to), each built once per fold, or the sampler's union stages
     (compact.union_stage, per-lane tables; converged-lane repacking then
-    gathers the surviving lanes' tables and activity too). stage_log, if
+    gathers the surviving lanes' table rows and activity too). stage_log, if
     given, receives (label, iterations, wall_s) per stage. Returns (x,
     final centroid energies)."""
     dev = x0.device
@@ -293,7 +293,8 @@ def _protocol_staged(x0, stages, max_iter: int, dist_on_ca: bool = False,
                     st = state_gather(st, sel)
                     lane = lane[torch.as_tensor(sel, device=dev)]
                     if isinstance(cr, UnionStage):
-                        # per-lane tables follow their lanes, on the device
+                        # the lane -> table row map and the activity
+                        # follow their lanes, on the device
                         cr = union_stage(*union_take_lanes(cr.ur, cr.acts,
                                                            sel))
                         fun = energy(cr, w)

@@ -16,9 +16,12 @@ folder (folder.fold_chains_pool). Per pair the formulas are those of
 restraints.compile_restraints / restraint_masks and the disulfide rules;
 only the iteration space (listed pairs, not dense (L, L)) differs.
 
-Layout: the tables y, m are pair-major (P, C, K) and the activity (P, C),
-the layout of the queries the union energy computes and the one the
-spline kernel's lanes entry reads, so no evaluation transposes anything.
+Layout: tables are built only for the pool rows the fold's lanes use (a
+few lanes fold from each histogram) and stored once per such row as
+pair-major interval tables (P, U', K-1, 4), with a (C,) lane -> row map;
+the activity is per lane, (P, C), the layout of the queries the union
+energy computes. That is the storage the spline kernel's lanes entry
+reads, so no evaluation transposes or expands anything.
 
 The pair list of a term is JAX's jnp.nonzero(size=P, fill_value=1): the
 union's flat indices in row-major order, padded to the static P with flat
@@ -36,6 +39,7 @@ import numpy as np
 import torch
 
 from trx2dy_torch.dynamics.dampen import gaussian_smooth_bins
+from trx2dy_torch.ops.spline_energy import interval_tables
 from trx2dy_torch.physics.compact import (
     UnionActs, UnionRestraints, UnionTerm, rows_on_device,
 )
@@ -215,14 +219,15 @@ class UnionCompiler:
             grown.append(md.sum())
         return torch.stack([torch.stack(raw), torch.stack(grown)])
 
-    def _tables_at_pairs(self, pool, name, flat):
-        """(P, U, K) -log-ratio spline values at the listed pairs:
-        compile_restraints' formulas (restraints.py:99-150) at the union
-        pair list only, pair-major."""
+    def _tables_at_pairs(self, pool, name, flat, rows):
+        """(P, U', K) -log-ratio spline values of the pool rows `rows` at
+        the listed pairs: compile_restraints' formulas
+        (restraints.py:99-150) at the union pair list only, pair-major."""
         p = self.params
         U, L = pool[name].shape[0], self.L
         nb = pool[name].shape[-1]
-        ph = pool[name].reshape(U, L * L, nb).index_select(1, flat)
+        ph = pool[name].reshape(U, L * L, nb).index_select(1, flat) \
+            .index_select(0, rows)
         ph = ph.transpose(0, 1)                           # (P, U, nb)
         if name == "dist":
             attr = (-torch.log((ph[..., 5:] + p.MEFF)
@@ -240,13 +245,22 @@ class UnionCompiler:
         lane_map: (C,) fold lane -> pool row; P: per-term pair-list sizes
         (dist, omega, theta, phi), each at least the term's count.
 
-        Returns (UnionRestraints with (P, C, K) tables, [UnionActs of each
-        centroid stage], relax round-1 acts, relax round-2 acts), acts
-        (P, C) bool."""
+        Returns (UnionRestraints with (P, U', K-1, 4) tables of the U'
+        distinct pool rows in lane_map and a (C,) lane -> row map, [UnionActs
+        of each centroid stage], relax round-1 acts, relax round-2 acts),
+        acts (P, C) bool. The rows come from the host-side lane_map, so
+        nothing is read back."""
         L = self.L
         dev = pool["dist"].device
-        lane_map = torch.as_tensor(np.asarray(lane_map), dtype=torch.int64,
-                                   device=dev)
+        lane_np = np.asarray(lane_map, np.int64)
+        used, inverse = np.unique(lane_np, return_inverse=True)
+        if used[0] < 0 or used[-1] >= pool["dist"].shape[0]:
+            raise ValueError(f"lane_map rows {used[0]}..{used[-1]} outside "
+                             f"the pool's {pool['dist'].shape[0]}")
+        rows = torch.as_tensor(used, device=dev)
+        row = torch.as_tensor(inverse.reshape(-1), dtype=torch.int32,
+                              device=dev)
+        lane_map = torch.as_tensor(lane_np, device=dev)
         pr, ss = self.probs_and_ss(pool)
         terms = {}
         acts = {name: [] for name in NAMES}
@@ -260,19 +274,18 @@ class UnionCompiler:
             pad = torch.arange(P_t, device=dev) >= union.sum()
             i, j = flat // L, flat % L
 
-            y_u = self._tables_at_pairs(pool, name, flat)   # (P, U, K)
-            U = y_u.shape[1]
+            y_u = self._tables_at_pairs(pool, name, flat, rows)  # (P, U', K)
+            U = pr[name].shape[0]
             if name == "dist" and self.ss_possible:
-                ss_pair = ss.reshape(U, L * L).index_select(1, flat).T
+                ss_pair = ss.reshape(U, L * L).index_select(1, flat) \
+                    .index_select(0, rows).T
                 y_u = torch.where(ss_pair[..., None], self.ss_well, y_u)
             if not self.use_orient and name != "dist":
                 y_u = torch.zeros_like(y_u)
             m_u = y_u @ self.ops_t[name]
             terms[name] = UnionTerm(
                 i=rows_on_device(i, L), j=rows_on_device(j, L),
-                y=y_u.index_select(1, lane_map).contiguous(),
-                m=m_u.index_select(1, lane_map).contiguous(),
-                x=self.knots[name])
+                tab=interval_tables(y_u, m_u), row=row, x=self.knots[name])
 
             prob_pair = pr[name].reshape(U, L * L).index_select(1, flat)
             prob_pair = prob_pair.T.index_select(1, lane_map)   # (P, C)
