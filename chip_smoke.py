@@ -70,9 +70,30 @@ Phases; any failure exits non-zero and no phase is skipped:
      that energy profiled (the union chunk). The initial fold's and each
      step's wall (fold, emit, measure), decoys per minute, evaluations, ms
      per evaluation, host syncs per step and peak memory are printed;
-  7. a `kernels` JSON line, then {"ok": true, "device": {...}} last.
+  7. the analysis layer and the host chain fold: fold (a)'s 50 decoys
+     scored by the device TM-score engine (tm_score_batch) against the
+     compact walk behind their histograms (the walk gives the CB-CB
+     distances, so the decoys' CB traces), each pair held to the native
+     engine (NATIVE_TM_TOL, RMSD_TOL); the (50, 50) TM and
+     RMSD matrices of their CA traces by the device engine over the 1225
+     pairs and by the native engine, held alike and timed; the cluster CLI
+     (python -m trx2dy_torch.cli.cluster, called in this process) on phase
+     6's 24 conf_* PDBs in the glocon, tmscore and rmsd modes with
+     --n_clusters CLUSTERS, its copies checked; the evaluate CLI with two
+     of (b')'s full-atom decoys as natives and phase 6's conf_* as
+     predictions, its summary.txt checked (two native lines, four
+     statistics); then fold_chains at L=64 on 4 chains from each model's
+     pred_npz of phase 4, CHAIN_CANDIDATES candidates a chain, a 32-lane
+     bucket, mode 2, FastRelax and the cartesian refinement, max_iter
+     CHAIN_FOLD_ITERS: one lanes-entry launch per spline-counted
+     evaluation, the first energy and gradient held to the plain spline
+     path (FOLD_START_TOL), a repeated evaluation bit-identical, finite
+     energies below their starts, each chain's pick the argmin of its
+     candidates; wall, evaluations, ms per evaluation, host syncs and
+     peak memory printed;
+  8. a `kernels` JSON line, then {"ok": true, "device": {...}} last.
 
-Launch counts are set to 0 just before each request of phases 4 to 6 and
+Launch counts are set to 0 just before each request of phases 4 to 7 and
 read just after it; a kernel of a path that did not launch fails the run.
 
 It exits non-zero, printing no result, where CUDA is unavailable or the
@@ -131,6 +152,26 @@ PROFILE_ITERS = 50
 CA_CA_BAND = (2.7, 4.2)    # consecutive CA-CA distances (A)
 REFINE_MOVE = 1.5          # refined CA from where it started, at most (A)
 CLASH_TOL = 1e-3           # packed clash energy <= start + CLASH_TOL
+# phase 7: the device TM-score engine against the native one. The device
+# engine runs every round of each seed's search where the native one stops
+# once the selection fixes or fewer than 4 residues pass, so its TM is
+# not lower, and the two agree within NATIVE_TM_TOL where TM >=
+# NATIVE_TM_FROM; RMSD (Kabsch over every residue) within RMSD_TOL x
+# max(1, RMSD). From the CPU tests (tests/test_torch_tmscore.py): equal to
+# 2e-7 at TM >= 0.7, 4.9e-4 apart at TM 0.42-0.49, up to 0.037 higher at
+# TM 0.06-0.11. Float32 can flip a residue at the cutoff where the native
+# engine's float64 does not, so a pair may end a little lower: 2.2e-5 in
+# the all-vs-all on the card (PERF.md), held to NATIVE_TM_TOL.
+NATIVE_TM_TOL = 1e-3
+NATIVE_TM_FROM = 0.5
+RMSD_TOL = 1e-4
+CLUSTERS = 4               # --n_clusters of the cluster CLI
+# the chain fold: 4 chains from each model's L=64 pred_npz, 2 candidates a
+# chain, the sampler's 32-lane bucket, mode 2 with FastRelax and the
+# cartesian refinement; max_iter, the centroid stages' budget, is the one
+# depth cut: 300 took 85.5 s on a host where fold (a) took 159 s, and the
+# chip hosts differ by up to 2x (PERF.md), so 150 keeps it near 90 s
+CHAIN_NPZ_CHAINS, CHAIN_CANDIDATES, CHAIN_FOLD_ITERS = 4, 2, 150
 
 # Data-sheet peaks: float32 outside the tensor cores, memory rate, dense
 # TF32 on the tensor cores.
@@ -1216,7 +1257,7 @@ def fold_phase(dev, work: Path, npz_b: str, seq_b: str):
              profile_chunk(relax_a, x0_a, dev, label="relax"),
              profile_chunk(cart_a, torch.zeros_like(delta).to(dev), dev,
                            label="cartesian")]
-    return [req_a, req_b, req_c], profs
+    return [req_a, req_b, req_c], profs, res_a.atoms
 
 
 def dampened_chain_stage(dev, save: Path, name: str, seq: str,
@@ -1366,8 +1407,227 @@ def run_single_phase(dev, work: Path, a3m: Path, model_dir: Path,
     return out
 
 
+def check_against_native(label: str, tm, rmsd, tm_nat, rmsd_nat) -> dict:
+    """Hold the device engine's TM and RMSD (numpy) to the native engine's:
+    never lower by more than NATIVE_TM_TOL, within it where TM >=
+    NATIVE_TM_FROM, RMSD within RMSD_TOL relative; returns the largest
+    differences."""
+    diff = tm - tm_nat
+    high = tm_nat >= NATIVE_TM_FROM
+    out = {"pairs": int(tm.size), "pairs_tm_ge_0.5": int(high.sum()),
+           "tm_max_abs_diff": float(np.abs(diff).max()),
+           "tm_max_abs_diff_ge_0.5": float(np.abs(diff[high]).max())
+           if high.any() else None,
+           "tm_min_diff": float(diff.min()),
+           "rmsd_max_rel_diff": float((np.abs(rmsd - rmsd_nat)
+                                       / np.maximum(1.0, rmsd_nat)).max())}
+    print(f"{label} device vs native engine " + json.dumps(out), flush=True)
+    check(out["tm_min_diff"] >= -NATIVE_TM_TOL,
+          f"{label}: device TM below the native one by {-out['tm_min_diff']}")
+    check(not high.any() or out["tm_max_abs_diff_ge_0.5"] <= NATIVE_TM_TOL,
+          f"{label}: TM >= {NATIVE_TM_FROM} differs by "
+          f"{out['tm_max_abs_diff_ge_0.5']}")
+    check(out["rmsd_max_rel_diff"] <= RMSD_TOL,
+          f"{label}: RMSD differs by {out['rmsd_max_rel_diff']} (relative)")
+    return out
+
+
+def timed(dev, fn):
+    """(fn(), wall seconds) with the device synchronised at both ends."""
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize(dev)
+    return out, time.perf_counter() - t0
+
+
+def analysis_phase(dev, work: Path, atoms_a: dict) -> dict:
+    """Phase 7, first half: fold (a)'s quality, the all-vs-all matrices,
+    the cluster and evaluate CLIs on phase 6's decoys."""
+    from trx2dy_torch import native
+    from trx2dy_torch.analysis.tmscore import tm_score_batch
+    from trx2dy_torch.cli import cluster as cluster_cli
+    from trx2dy_torch.cli import evaluate as evaluate_cli
+
+    check(native.available(), "the native library did not build")
+    out = {}
+    # fold (a) against the walk that gave its CB-CB distance histograms
+    walk = compact_walk(FOLD_L, seed=1)
+    cb = atoms_a["CB"]
+    r, wall = timed(dev, lambda: tm_score_batch(cb, walk, device=dev))
+    check(r.tm.device.type == dev.type and r.tm.shape == (FOLD_DECOYS,),
+          f"tm_score_batch: {r.tm.shape} on {r.tm.device}")
+    tm, rmsd = r.tm.cpu().numpy(), r.rmsd.cpu().numpy()
+    cb_np = cb.cpu().numpy()
+    t0 = time.perf_counter()
+    nat = np.array([native.tmscore(c, walk) for c in cb_np])
+    t_nat = time.perf_counter() - t0
+    out["fold_a_quality"] = {
+        "decoys": FOLD_DECOYS, "L": FOLD_L, "atoms": "CB",
+        "tm_median": float(np.median(tm)), "tm_max": float(tm.max()),
+        "tm_min": float(tm.min()), "rmsd_median": float(np.median(rmsd)),
+        "gdt_ts_median": float(r.gdt_ts.median()),
+        "device_s": wall, "native_s": t_nat,
+        **check_against_native("fold a quality", tm, rmsd, nat[:, 0],
+                               nat[:, 1])}
+    print("quality a " + json.dumps(out["fold_a_quality"]), flush=True)
+
+    # all-vs-all over the decoys' CA traces: device engine and native
+    ca = atoms_a["CA"]
+    i, j = np.triu_indices(FOLD_DECOYS, k=1)
+    ii, jj = (torch.as_tensor(a, device=ca.device) for a in (i, j))
+    r, t_dev = timed(dev, lambda: tm_score_batch(ca[ii], ca[jj], device=dev))
+    t0 = time.perf_counter()
+    tm_nat, rmsd_nat = native.tmscore_matrix(ca.cpu().numpy())
+    t_nat = time.perf_counter() - t0
+    out["all_vs_all"] = {
+        "decoys": FOLD_DECOYS, "device_s": t_dev, "native_s": t_nat,
+        **check_against_native("all-vs-all", r.tm.cpu().numpy(),
+                               r.rmsd.cpu().numpy(), tm_nat[i, j],
+                               rmsd_nat[i, j])}
+    print("all_vs_all " + json.dumps(out["all_vs_all"]), flush=True)
+
+    # the cluster CLI on phase 6's conf_* PDBs, each mode
+    pdb_dir = work / "run_single" / "run64" / "pred_pdb"
+    confs = sorted(p.name for p in pdb_dir.glob("conf_*.pdb"))
+    try:
+        import sklearn  # noqa: F401
+        kmeans = "sklearn"
+    except ImportError:
+        kmeans = "numpy (sklearn absent)"
+    out["cluster"] = {"decoys": len(confs), "kmeans": kmeans}
+    for mode in ("glocon", "tmscore", "rmsd"):
+        dest = work / "cluster" / mode
+        res, wall = timed(dev, lambda: cluster_cli.main(
+            ["-d", str(pdb_dir), "-m", mode, "-o", str(dest),
+             "--n_clusters", str(CLUSTERS), "--device", str(dev)]))
+        # numpy k-means may leave a cluster empty; sklearn's does not
+        check(res != "no_cluster" and 1 <= len(res) <= CLUSTERS
+              and set(res) <= set(range(CLUSTERS))
+              and sorted(f for fs in res.values() for f in fs) == confs,
+              f"cluster {mode}: {res}")
+        copied = sorted(p.name for p in dest.iterdir())
+        want = sorted(f for fs in res.values() for f in fs[:5])
+        check(copied == want and all(
+            (dest / f).read_bytes() == (pdb_dir / f).read_bytes()
+            for f in copied), f"cluster {mode}: copied {copied}")
+        out["cluster"][mode] = {"wall_s": wall, "sizes": sorted(
+            len(fs) for fs in res.values()), "copied": len(copied)}
+    print("cluster " + json.dumps(out["cluster"]), flush=True)
+
+    # the evaluate CLI: two of (b')'s full-atom decoys as natives
+    nat_dir = work / "natives"
+    nat_dir.mkdir(exist_ok=True)
+    for k in (0, 1):
+        shutil.copy(work / "fold" / f"t64fa_{k}.pdb", nat_dir)
+    summary = work / "eval" / "summary.txt"
+    stats, wall = timed(dev, lambda: evaluate_cli.main(
+        ["-n", str(nat_dir), "-p", str(pdb_dir), "-o", str(summary),
+         "--device", str(dev)]))
+    lines = summary.read_text().splitlines()
+    stat_names = ("Mean RMSD:", "Mean TM-score:", "Min RMSD:",
+                  "Max TM-score:")
+    check(len(lines) == 6 and all(
+        lines[k].startswith(f"t64fa_{k} best_RMSD: ")
+        and " best_TM_score: " in lines[k] for k in (0, 1))
+        and all(ln.startswith(n) for ln, n in zip(lines[2:], stat_names))
+        and all(v is not None and np.isfinite(v) for v in stats),
+        f"evaluate: summary.txt {lines}")
+    out["evaluate"] = {"natives": 2, "predictions": len(confs),
+                       "wall_s": wall, "summary": lines}
+    print("evaluate " + json.dumps(out["evaluate"]), flush=True)
+    return out
+
+
+def chain_fold_phase(dev, npz_paths: dict, seq: str) -> dict:
+    """Phase 7, second half: fold_chains at the sampler's width with every
+    launch counter at 0 just before and read just after, then its checks
+    on the card."""
+    from trx2dy_torch.ops.spline_energy import (
+        spline_energy_dense, spline_energy_lanes, spline_energy_pairs,
+    )
+    from trx2dy_torch.physics import energy, folder
+    from trx2dy_torch.physics.minimize import STATS
+
+    npzs = []
+    for tag in ("NMR", "Xray"):
+        with np.load(npz_paths[tag]) as f:
+            npzs += [dict(f)] * CHAIN_NPZ_CHAINS
+    K = len(npzs)
+    seen = {}
+    protocol = folder._protocol_staged
+
+    def spy(x0, stages, *a, **kw):
+        seen["x0"], seen["stages"] = x0, stages
+        seen["x"], seen["f"] = protocol(x0, stages, *a, **kw)
+        return seen["x"], seen["f"]
+
+    log = []
+    folder._protocol_staged = spy
+    try:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        spline_energy_pairs.launches = spline_energy_dense.launches = 0
+        spline_energy_lanes.launches = 0
+        STATS.reset()
+        res, wall = timed(dev, lambda: folder.fold_chains(
+            npzs, seq, torch.Generator().manual_seed(13), mode=2,
+            max_iter=CHAIN_FOLD_ITERS, candidates=CHAIN_CANDIDATES,
+            lane_bucket=CHAIN_LANES, device=dev, stage_log=log))
+    finally:
+        folder._protocol_staged = protocol
+    L = len(seq)
+    out = {"L": L, "chains": K, "candidates": CHAIN_CANDIDATES,
+           "lanes": CHAIN_LANES, "max_iter": CHAIN_FOLD_ITERS,
+           "wall_s": wall, "energy_evals": STATS.evals,
+           "ms_per_eval": 1e3 * wall / max(STATS.evals, 1),
+           "restraint_free_evals": STATS.free_evals,
+           "host_syncs": STATS.syncs,
+           "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+           "spline_lanes_launches": spline_energy_lanes.launches,
+           "spline_pair_launches": spline_energy_pairs.launches,
+           "spline_dense_launches": spline_energy_dense.launches,
+           "table_rows": seen["stages"][0].ur.dist.tab.shape[1],
+           "pairs": list(seen["stages"][0].splines.sizes)}
+    print("chain_fold " + json.dumps(out), flush=True)
+    print("stage_log chain_fold " + json.dumps(log), flush=True)
+    check(STATS.evals > 0 and spline_energy_lanes.launches == STATS.evals,
+          f"chain fold: {spline_energy_lanes.launches} lanes launches for "
+          f"{STATS.evals} energy evaluations, expected 1 per evaluation")
+    check(spline_energy_pairs.launches == 0
+          and spline_energy_dense.launches == 0,
+          "chain fold: the pair or dense entry launched")
+    check(res.torsions.shape == (K, 3, L) and res.atoms["CA"].shape
+          == (K, L, 3) and out["table_rows"] == 2,
+          f"chain fold: torsions {tuple(res.torsions.shape)}, "
+          f"{out['table_rows']} table rows")
+    check({"cent", "relax1", "cart_r1", "relax2", "cart_refine"}
+          <= {lab for lab, _, _ in log}, f"chain fold: stages {log}")
+    f = seen["f"].cpu()
+    pick = torch.arange(K) * CHAIN_CANDIDATES + torch.argmin(
+        f[:K * CHAIN_CANDIDATES].reshape(K, CHAIN_CANDIDATES), dim=1)
+    check(torch.equal(res.energy.cpu(), f[pick]),
+          "chain fold: a chain did not keep its lowest-energy candidate")
+    w = torch.as_tensor(energy.weights_to_vec(energy.SCOREFXN_CENT),
+                        device=dev)
+    first, last = seen["stages"][0], seen["stages"][-1]
+    with torch.no_grad():
+        start = energy.batched_energy_weighted_lanes(seen["x0"], last, w)
+    check_fold("chain fold", res.energy, start[pick.to(dev)])
+
+    def fun(x):
+        return energy.batched_energy_weighted_lanes(x, first, w)
+    out["first_eval"] = check_kernel_vs_plain("chain fold energy", fun,
+                                              seen["x0"])
+    e_k, g_k = value_and_grad(fun, seen["x0"])
+    e_r, g_r = value_and_grad(fun, seen["x0"])
+    check(torch.equal(e_k, e_r) and torch.equal(g_k, g_r),
+          "chain fold: a repeated energy evaluation is not bit-identical")
+    return out
+
+
 def kernel_summary(kernel_rows, spline_rows, launches: int, folds,
-                   run_single=None) -> list:
+                   run_single=None, chain_fold=None) -> list:
     """The `kernels` line: every kernel with its launches on the main path,
     its error, its times and its bound."""
     at_max = [r for r in kernel_rows if r["L"] == max(KERNEL_LENGTHS)]
@@ -1440,7 +1700,8 @@ def kernel_summary(kernel_rows, spline_rows, launches: int, folds,
         "name": "spline_energy_lanes", **common,
         "replaces": "trx2dy/ops/spline_energy.py:27 (the sampler's "
                     "per-lane tables, trx2dy/physics/spline.py:289)",
-        "launches": (run_single or {}).get("spline_lanes_launches", 0),
+        "launches": sum((r or {}).get("spline_lanes_launches", 0)
+                        for r in (run_single, chain_fold)),
         "max_abs_err": max(r["max_abs_err"] for r in lanes_rows),
         "ms": lanes["kernel_ms"],
         "kernel_ms": lanes["kernel_ms"],
@@ -1516,15 +1777,21 @@ def main() -> int:
         requests, launches, outputs = main_path(dev, WORK)
         print(f"elapsed {time.perf_counter() - t0:.1f} s", flush=True)
         query = (WORK / f"t{CLI_L}.a3m").read_text().splitlines()[1]
-        folds, prof = fold_phase(dev, WORK, outputs[CLI_L]["NMR"], query)
+        folds, prof, atoms_a = fold_phase(dev, WORK, outputs[CLI_L]["NMR"],
+                                          query)
         print(f"elapsed {time.perf_counter() - t0:.1f} s", flush=True)
         run = run_single_phase(dev, WORK, WORK / f"t{CLI_L}.a3m",
                                WORK / "models", query)
         print(f"elapsed {time.perf_counter() - t0:.1f} s", flush=True)
+        analysis_phase(dev, WORK, atoms_a)
+        print(f"elapsed {time.perf_counter() - t0:.1f} s", flush=True)
+        chain = chain_fold_phase(dev, outputs[CLI_L], query)
+        print(f"elapsed {time.perf_counter() - t0:.1f} s", flush=True)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
-    kernels = kernel_summary(kernel_rows, spline_rows, launches, folds, run)
+    kernels = kernel_summary(kernel_rows, spline_rows, launches, folds, run,
+                             chain)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

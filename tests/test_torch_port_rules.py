@@ -1,9 +1,10 @@
 """Rules of the PyTorch port that no parity test shows.
 
 - Nothing in trx2dy_torch/ or chip_smoke.py imports jax or trx2dy.
-- Entry points (the geometry stage, the fold, packing, run_single and the
-  CLIs) default to CUDA and raise where there is none, before writing
-  anything, rather than carrying on on the CPU; they switch TF32 off.
+- Entry points (the geometry stage, the fold, the chain fold, packing,
+  run_single, the analysis layer and the CLIs) default to CUDA and raise
+  where there is none, before writing anything, rather than carrying on on
+  the CPU; they switch TF32 off.
 - chip_smoke.py fails, printing no result, without a CUDA device and in a
   directory that holds nothing else of the repo.
 """
@@ -18,6 +19,9 @@ import numpy as np
 import pytest
 import torch
 
+from trx2dy_torch.analysis import cluster, evaluate, tmscore
+from trx2dy_torch.cli import cluster as cluster_cli
+from trx2dy_torch.cli import evaluate as evaluate_cli
 from trx2dy_torch.cli import fold as fold_cli
 from trx2dy_torch.cli import run_inference as run_inference_cli
 from trx2dy_torch.device import resolve_device
@@ -25,7 +29,7 @@ from trx2dy_torch.dynamics.driver import (
     DynamicsConfig, geometry_stage, run_single,
 )
 from trx2dy_torch.models.predictor2d_infer import pred_2d_geometry
-from trx2dy_torch.physics.folder import fold_ensemble
+from trx2dy_torch.physics.folder import fold_chains, fold_ensemble
 from trx2dy_torch.physics.sidechain import pack_ensemble
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -88,6 +92,32 @@ def test_pipeline_entry_points_raise_without_cuda(monkeypatch, tmp_path):
                                 "--save_dir", str(save), "--model_dir",
                                 str(tmp_path / "models")])
     assert list(save.iterdir()) == []
+
+
+def test_analysis_and_chain_fold_entry_points_raise_without_cuda(
+        monkeypatch, tmp_path):
+    """The TM-score engine, evaluation, clustering, their CLIs and
+    fold_chains refuse before any work: no output directory is made."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = np.zeros((6, 3), np.float32)
+    d = str(tmp_path)
+    calls = [
+        lambda: tmscore.tm_score_pair(x, x),
+        lambda: tmscore.tm_score_batch(x[None], x),
+        lambda: evaluate.run_score(d, d, save_summary=True),
+        lambda: cluster.decoy_dist_maps(d),
+        lambda: cluster.tmscore_rmsd_matrices(d),
+        lambda: cluster.save_cluster_result(d, output_dir=d + "/c"),
+        lambda: evaluate_cli.main(["-n", d, "-p", d, "-o", d + "/e"]),
+        lambda: cluster_cli.main(["-d", d, "-o", d + "/c"]),
+        lambda: fold_chains([{"dist": np.full((4, 4, 37), 1.0 / 37,
+                                              np.float32)}], "AAAA",
+                            fastrelax=False, use_orient=False),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert list(tmp_path.iterdir()) == []
 
 
 def test_resolve_device_turns_tf32_off(monkeypatch):

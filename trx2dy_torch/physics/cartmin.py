@@ -15,13 +15,14 @@ this module adds per-atom displacements on top of it, minimised against
     CB.
 
 The restraint terms take compacted pair lists ("compact", through the
-spline kernel's pair entry, one launch per evaluation), the Dynamics
-sampler's shared pair list with per-lane tables ("union", a
-compact.UnionStage, through the kernel's lanes entry, one launch per
-evaluation; cartesian_refine_lanes), or dense tables and masks ("dense",
-the reference the tests hold the compact kind to, through the kernel's
-dense entry). The host chain fold's "lanes" kind (per-lane pair lists) is
-not ported.
+spline kernel's pair entry, one launch per evaluation), a shared pair list
+with per-lane tables ("union", a compact.UnionStage, through the kernel's
+lanes entry, one launch per evaluation; cartesian_refine_lanes), or dense
+tables and masks ("dense", the reference the tests hold the compact kind
+to, through the kernel's dense entry). The union kind serves both chain
+folds: the sampler's tables built on the device and the host chain fold's
+per-lane tables (JAX's "lanes" kind, CompactLanes), which
+compact.compact_restraints_lanes builds as a UnionStage.
 """
 from __future__ import annotations
 
@@ -144,8 +145,9 @@ def _cart_efun(atoms0: dict, tables, w_vec, kind: str,
                dist_on_ca: bool = False, res_mask=None):
     """delta (B, 15L) -> (B,) total cartesian-refinement energy, the score
     function as a (9,) weight tensor. kind "compact": tables a
-    CompactRestraints on the device (compact.compact_to); "union": a
-    compact.UnionStage (per-lane tables, B = the stage's lanes); "dense":
+    CompactRestraints on the device (compact.compact_to); "union", or JAX's
+    name "lanes" for the host chain fold's: a compact.UnionStage (per-lane
+    tables, B = the stage's lanes); "dense":
     tables (rst, masks) as tensors (restraints.tables_to / masks_to), whose
     distance is CB-CB whatever dist_on_ca says, as in JAX."""
     w = dict(zip(WEIGHT_FIELDS, w_vec))
@@ -157,12 +159,12 @@ def _cart_efun(atoms0: dict, tables, w_vec, kind: str,
             return compact_restraint_energy_batch(
                 atoms_b, tables, w["atom_pair"], w["dihedral"], w["angle"],
                 dist_on_ca=dist_on_ca)
-        if kind == "union":
+        if kind in ("union", "lanes"):
             return compact_restraint_energy_union(
                 atoms_b, tables, w["atom_pair"], w["dihedral"], w["angle"],
                 dist_on_ca=dist_on_ca)
-        raise ValueError(f"cartesian energy kind {kind!r} is not ported "
-                         "(compact, union, dense)")
+        raise ValueError(f"unknown cartesian energy kind {kind!r} "
+                         "(compact, union or lanes, dense)")
 
     def efun(delta):
         atoms = _delta_unpack(atoms0, delta)
@@ -310,9 +312,10 @@ def cartesian_refine_compact(atoms: dict, cr, w: EnergyWeights,
 def cartesian_refine_lanes(atoms: dict, stage, w: EnergyWeights,
                            max_iter: int = 200, dist_on_ca: bool = False,
                            res_mask=None, stage_log: Optional[list] = None):
-    """The sampler's refinement (cartmin.py:390-420): lane k of the atoms
-    (C, L, 3) refines against its own tables of a compact.UnionStage (the
-    relax round-2 stage fold_chains_pool builds), then the idealize pass.
+    """The chain folds' refinement (cartmin.py:390-420): lane k of the
+    atoms (C, L, 3) refines against its own tables of a compact.UnionStage
+    (the relax round-2 stage that fold_chains_pool or fold_chains builds),
+    then the idealize pass.
     Returns (refined atoms, (C,) final energies)."""
     return _refine(atoms, stage, weights_to_vec(w), max_iter, dist_on_ca,
                    res_mask, stage_log)

@@ -16,7 +16,9 @@ once per pool row the lanes fold from, as interval tables tab (P, U, K-1,
 4) behind a lane -> row map row (C,), and acts are (P, C). Its splines run
 through the kernel's lanes entry (ops.spline_energy_lanes), one launch per
 evaluation; union_stage checks a protocol stage's tables for it once per
-sampler step.
+sampler step. The host chain fold (folder.fold_chains) takes the same
+form, built on the host from per-lane restraint sets by
+compact_restraints_lanes, one pair list per protocol stage.
 
 Atoms are gathered by index: JAX's one-hot product at Precision.HIGHEST
 (compact.py:427-431) is an exact gather chosen for the TPU's matrix unit,
@@ -34,7 +36,8 @@ import torch
 
 from trx2dy_torch.geometry.transforms import bond_angle, dihedral
 from trx2dy_torch.ops.spline_energy import (
-    SplineLanes, SplinePairs, spline_energy_lanes, spline_energy_pairs,
+    SplineLanes, SplinePairs, interval_tables, spline_energy_lanes,
+    spline_energy_pairs,
 )
 from trx2dy_torch.physics.restraints import RestraintMasks, RestraintSet
 from trx2dy_torch.physics.spline import masked_spline_energy
@@ -282,6 +285,61 @@ def union_take_lanes(ur: UnionRestraints, acts: UnionActs, sel):
             UnionActs(*[a.index_select(1, sel) for a in acts]))
 
 
+def compact_restraints_lanes(rsts, masks_list, floor: dict | None = None,
+                             device="cpu",
+                             dtype=torch.float32) -> UnionStage:
+    """One protocol stage of the host chain fold (folder.fold_chains): lane
+    k folds against its own restraint set rsts[k] under its own masks
+    masks_list[k] (host numpy, compact.py:141-150).
+
+    JAX stacks per-lane pair lists, lane-major (M, P, K). The port builds
+    the sampler's union form on the host instead, so the stage runs
+    through the kernel's lanes entry: per term one pair list, the union of
+    the lanes' active pairs padded to a half-octave bucket of at least
+    floor[term]; interval tables of the distinct (table, mask) objects
+    only, as JAX dedups them (fold_chains fans one object out to every
+    lane of an npz); a lane -> row map; each lane's activity on the union.
+    A lane's energy is JAX's up to summation order. Returns the
+    UnionStage on `device`, its tables of `dtype`."""
+    L = np.asarray(masks_list[0].dist).shape[0]
+    terms, acts = [], []
+    for name in ("dist", "omega", "theta", "phi"):
+        memo: dict = {}
+        lane_row = []
+        for rst, masks in zip(rsts, masks_list):
+            key = (id(getattr(rst, name)), id(getattr(masks, name)))
+            if key not in memo:
+                memo[key] = (len(memo), getattr(rst, name),
+                             np.asarray(getattr(masks, name)))
+            lane_row.append(memo[key][0])
+        rows = list(memo.values())
+        ii, jj = np.nonzero(np.any([m for _, _, m in rows], axis=0))
+        n = len(ii)
+        P = max(_bucket(n), (floor or {}).get(name, 0))
+        i = np.concatenate([ii, np.zeros(P - n, np.int64)])
+        j = np.concatenate([jj, np.full(P - n, min(1, L - 1), np.int64)])
+        flat = i * L + j
+        K = rows[0][1].y.shape[-1]
+
+        def at_pairs(a):       # (P, U', K) of each row's (L, L, K) table
+            return torch.as_tensor(np.stack(
+                [np.asarray(a(t)).reshape(L * L, K)[flat]
+                 for _, t, _ in rows], axis=1), dtype=dtype, device=device)
+
+        act_u = np.stack([m.reshape(L * L)[flat] for _, _, m in rows])
+        act_u[:, n:] = False                                   # padding
+        terms.append(UnionTerm(
+            i=_rows(i, L, device), j=_rows(j, L, device),
+            tab=interval_tables(at_pairs(lambda t: t.y),
+                                at_pairs(lambda t: t.m)),
+            row=torch.as_tensor(lane_row, dtype=torch.int32, device=device),
+            x=torch.as_tensor(np.asarray(rows[0][1].x), dtype=dtype,
+                              device=device)))
+        acts.append(torch.as_tensor(np.ascontiguousarray(act_u[lane_row].T),
+                                    device=device))
+    return union_stage(UnionRestraints(*terms), UnionActs(*acts))
+
+
 def compact_restraint_energy_union(atoms_b: dict, stage: UnionStage,
                                    w_atom_pair, w_dihedral, w_angle,
                                    dist_on_ca: bool = False) -> torch.Tensor:
@@ -295,3 +353,8 @@ def compact_restraint_energy_union(atoms_b: dict, stage: UnionStage,
                                                           qs).unbind(0)
     return w_atom_pair * e_dist + w_dihedral * e_omega + \
         w_dihedral * e_theta + w_angle * e_phi
+
+
+# the host chain fold's lanes (compact.py:248-292) are a UnionStage from
+# compact_restraints_lanes, evaluated as the sampler's
+compact_restraint_energy_lanes = compact_restraint_energy_union

@@ -306,6 +306,11 @@ def batched_energy_weighted_union(x, stage, w_vec, dist_on_ca: bool = False,
                                        w["dihedral"], w["angle"], dist_on_ca)
 
 
+# the host chain fold's lanes (energy.py:370-393) are a UnionStage from
+# compact.compact_restraints_lanes, evaluated as the sampler's
+batched_energy_weighted_lanes = batched_energy_weighted_union
+
+
 def pose_base_and_geometry(torsions, w_vec, dist_on_ca: bool = False):
     """Non-restraint energy and the four dense query maps, over leading
     axes of torsions (..., 3, L)."""

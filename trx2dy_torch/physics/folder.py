@@ -32,14 +32,18 @@ fold_chains_pool is the Dynamics sampler's fold: one decoy per chain,
 each chain with its own restraint tables, built on the device from the
 sampler's histograms (physics/tablegen.py) over one shared pair list per
 term (compact.UnionStage); its energy evaluations launch the kernel's
-lanes entry once each. The host chain fold (fold_chains, per-lane pair
-lists) and the in-loop repacking switch (REPACK_IN_LOOP, off in JAX) are
-not ported. JAX's single-program driver (staged_execution=False,
-_protocol_jit) is a compile strategy of XLA; the port has one protocol
-driver.
+lanes entry once each. fold_chains, the public chain fold, takes one npz
+dict per chain: it compiles each distinct dict's restraints on the host,
+as fold_ensemble does, and builds every protocol stage as the same union
+form (compact.compact_restraints_lanes), so its evaluations launch the
+lanes entry once each too. The in-loop repacking switch (REPACK_IN_LOOP,
+off in JAX) is not ported. JAX's single-program driver
+(staged_execution=False, _protocol_jit) is a compile strategy of XLA; the
+port has one protocol driver.
 """
 from __future__ import annotations
 
+import hashlib
 import time
 from typing import NamedTuple, Optional, Sequence
 
@@ -53,8 +57,8 @@ from trx2dy_torch.physics.cartmin import (
     cartesian_refine_compact, cartesian_refine_lanes, cartesian_relax_block,
 )
 from trx2dy_torch.physics.compact import (
-    UnionStage, _bucket as _pair_bucket, compact_restraints, compact_to,
-    union_stage, union_take_lanes,
+    UnionStage, _bucket as _pair_bucket, compact_restraints,
+    compact_restraints_lanes, compact_to, union_stage, union_take_lanes,
 )
 from trx2dy_torch.physics.energy import (
     SCOREFXN1, SCOREFXN_CART, SCOREFXN_CENT, SCOREFXN_VDW, EnergyWeights,
@@ -478,6 +482,30 @@ def fold_ensemble(npz: dict, seq: str,
     return FoldResult(torsions=t[:, :, :L_true], energy=f, atoms=atoms)
 
 
+def _chain_starts(x0, generator, L: int, C: int, dev) -> torch.Tensor:
+    """(C, 3L) start torsions of a chain fold on dev: x0 (C' <= C, 3, L)
+    with its last row repeated, or basin samples drawn from generator."""
+    if x0 is None:
+        x0 = random_torsions(generator, L, C)
+    x0 = torch.as_tensor(np.asarray(x0) if not torch.is_tensor(x0) else x0,
+                         dtype=torch.float32).to(dev)
+    if x0.shape[0] < C:
+        x0 = torch.cat([x0, x0[-1:].expand((C - x0.shape[0],)
+                                           + x0.shape[1:])])
+    return x0.reshape(C, 3 * L)
+
+
+def _pick_candidates(f, K: int, reps: int, n_real: int) -> torch.Tensor:
+    """Lane of each of K chains: of its reps candidate lanes (k * reps ..
+    k * reps + reps - 1) the one of lowest final energy f."""
+    if reps > 1:
+        f_np = host_numpy(f)[:n_real].reshape(K, reps)
+        pick = np.arange(K) * reps + np.argmin(f_np, axis=1)
+    else:
+        pick = np.arange(K)
+    return torch.as_tensor(pick, device=f.device)
+
+
 def fold_chains_pool(pool: dict, lane_map, seq: str,
                      generator: Optional[torch.Generator] = None,
                      mode: int = 2, use_orient: bool = True,
@@ -511,8 +539,9 @@ def fold_chains_pool(pool: dict, lane_map, seq: str,
     init (x0 None); x0 (C' <= C, 3, L) start torsions, the last repeated.
 
     The host reads the 4 counts, the energies for the candidate pick and
-    what the caller reads of the decoys. Mode 3, idp and gpcr targets need
-    the host chain fold, which is not ported."""
+    what the caller reads of the decoys. Mode 3, idp and gpcr targets are
+    not compiled on the device; the JAX package sends them to the host
+    chain fold (fold_chains)."""
     from trx2dy_torch.physics.tablegen import NAMES, union_compiler
 
     dev = pool["dist"].device
@@ -552,14 +581,7 @@ def fold_chains_pool(pool: dict, lane_map, seq: str,
     host_sync(dev)
     tm["t_tables"] = round(time.perf_counter() - t0, 3)
 
-    if x0 is None:
-        x0 = random_torsions(generator, L, C)
-    x0 = torch.as_tensor(np.asarray(x0) if not torch.is_tensor(x0) else x0,
-                         dtype=torch.float32).to(dev)
-    if x0.shape[0] < C:
-        x0 = torch.cat([x0, x0[-1:].expand((C - x0.shape[0],)
-                                           + x0.shape[1:])])
-    x0 = x0.reshape(C, 3 * L)
+    x0 = _chain_starts(x0, generator, L, C, dev)
 
     t0 = time.perf_counter()
     x, f = _protocol_staged(x0, stages, max_iter, res_mask=res_mask,
@@ -579,13 +601,128 @@ def fold_chains_pool(pool: dict, lane_map, seq: str,
             res_mask=res_mask, stage_log=stage_log)
         host_sync(dev)
         tm["t_cart"] = round(time.perf_counter() - t0, 3)
-    if reps > 1:
-        f_np = host_numpy(f)[:n_real].reshape(K, reps)
-        pick = np.arange(K) * reps + np.argmin(f_np, axis=1)
-    else:
-        pick = np.arange(K)
-    pick = torch.as_tensor(pick, device=dev)
+    pick = _pick_candidates(f, K, reps, n_real)
     L_true = L if true_len is None else true_len
+    return FoldResult(torsions=t_all[pick][:, :, :L_true], energy=f[pick],
+                      atoms={k: v[pick][:, :L_true]
+                             for k, v in atoms.items()})
+
+
+def _npz_fingerprint(npz: dict) -> str:
+    """Content hash of a histogram dict (keys, shapes, dtypes, bytes), the
+    key by which fold_chains compiles each distinct dict once."""
+    h = hashlib.blake2b(digest_size=16)
+    for k in sorted(npz):
+        a = np.asarray(npz[k])
+        h.update(k.encode())
+        h.update(str(a.shape).encode())
+        h.update(str(a.dtype).encode())
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def fold_chains(npz_list, seq: str,
+                generator: Optional[torch.Generator] = None, mode: int = 2,
+                use_orient: bool = True, fastrelax: bool = True,
+                pcut: Optional[float] = None,
+                params: FoldParams = FoldParams(), max_iter: int = 1000,
+                x0=None, candidates: int = 1, detect_disulf: bool = True,
+                bucket_floors: Optional[dict] = None,
+                cart_refine: bool = True, pad_to: Optional[int] = None,
+                lane_bucket: Optional[int] = None, device="cuda",
+                stage_log: Optional[list] = None) -> FoldResult:
+    """One decoy per chain, each chain with its own restraint set
+    (folder.py:1028-1190): npz_list holds one histogram dict per chain.
+
+    Dicts of equal content (_npz_fingerprint) compile their restraints
+    once. candidates > 1 folds that many lanes per chain from fresh starts
+    and keeps the one of lowest final energy (not with x0). lane_bucket
+    pads the folded lanes to that count by repeating the last. pad_to pads
+    the target to that length with inert residues (masked out of every
+    term). bucket_floors: caller-owned {"all": {term: P}}, ratcheted so
+    later calls keep the pair-list sizes. generator seeds the torsion init
+    (x0 None); x0 (C' <= C, 3, L) start torsions, the last repeated.
+    Mode 3 raises, as in JAX: the stage masks are built without the npz
+    'idr' mask. With fastrelax and cart_refine, every bucketed lane is
+    refined in cartesian space before the pick. stage_log, if given,
+    receives (label, iterations, wall_s) per stage. Returns torsions,
+    final centroid energies and atoms on `device`."""
+    dev = resolve_device(device)
+    L_true = L = len(seq)
+    K = len(npz_list)
+    if candidates > 1 and x0 is not None:
+        raise ValueError(
+            "candidates > 1 requires x0=None: candidate lanes are fresh "
+            "random inits per chain; explicit torsions would fold the same "
+            "start candidate times with no best-of selection")
+    pcut = params.PCUT if pcut is None else pcut
+    # compile once per distinct content, hashed before padding (which
+    # copies); the id() memo spares re-hashing a dict passed many times
+    uniq: dict = {}
+    lane_of = []
+    fp_memo: dict = {}
+    for npz in npz_list:
+        fp = fp_memo.get(id(npz))
+        if fp is None:
+            fp = fp_memo[id(npz)] = _npz_fingerprint(npz)
+        if fp not in uniq:
+            uniq[fp] = (len(uniq), npz)
+        lane_of.append(uniq[fp][0])
+    u_npzs = [npz for _, npz in uniq.values()]
+    res_mask = None
+    if pad_to is not None and pad_to > L:
+        u_npzs = [pad_npz(npz, L, pad_to) for npz in u_npzs]
+        seq = seq + "A" * (pad_to - L)
+        res_mask = torch.arange(pad_to, device=dev) < L
+        L = pad_to
+    u_rsts = [compile_restraints(npz, params, use_orient=use_orient)
+              for npz in u_npzs]
+    if detect_disulf:
+        for idx, npz in enumerate(u_npzs):
+            ss = disulfide_pairs(np.asarray(npz["dist"]), seq)
+            if len(ss):
+                u_rsts[idx] = add_disulfide_restraints(u_rsts[idx], ss)
+    u_stages = [_stage_masks_centroid(r, seq, mode, pcut) for r in u_rsts]
+    reps = candidates if candidates > 1 else 1
+    fan = [u for u in lane_of for _ in range(reps)]
+    n_real = len(fan)
+    if lane_bucket is not None and lane_bucket > n_real:
+        fan = fan + [fan[-1]] * (lane_bucket - n_real)
+    C = len(fan)
+    rsts = [u_rsts[u] for u in fan]
+
+    def lanes(u_masks):
+        # one floor for every stage, as in JAX: the stages share shapes
+        fl = None if bucket_floors is None else \
+            bucket_floors.setdefault("all", {})
+        stage = compact_restraints_lanes(rsts, [u_masks[u] for u in fan],
+                                         floor=fl, device=dev)
+        if fl is not None:
+            for name, t in zip(("dist", "omega", "theta", "phi"), stage.ur):
+                fl[name] = max(fl.get(name, 0), t.tab.shape[0])
+        return stage
+
+    stages = [lanes([sm[s] for sm in u_stages])
+              for s in range(len(u_stages[0]))]
+    relax = tuple(lanes([restraint_masks(r, seq, 1, L, pcut=pc, nogly=True)
+                         for r in u_rsts])
+                  for pc in (0.15, 0.30)) if fastrelax else None
+
+    x0 = _chain_starts(x0, generator, L, C, dev)
+
+    cart = cart_refine and fastrelax
+    x, f = _protocol_staged(x0, stages, max_iter, res_mask=res_mask,
+                            stage_log=stage_log, relax=relax, cart_r1=cart)
+    t_all = x.reshape(C, 3, L)
+    with torch.no_grad():
+        atoms = build_backbone(t_all[:, 0], t_all[:, 1], t_all[:, 2])
+    if cart:
+        # over every bucketed lane, before the candidate pick, each lane
+        # against its own relax round-2 tables
+        atoms, _ = cartesian_refine_lanes(
+            atoms, relax[1], SCOREFXN_RELAX, max_iter=CART_REFINE_ITERS,
+            res_mask=res_mask, stage_log=stage_log)
+    pick = _pick_candidates(f, K, reps, n_real)
     return FoldResult(torsions=t_all[pick][:, :, :L_true], energy=f[pick],
                       atoms={k: v[pick][:, :L_true]
                              for k, v in atoms.items()})
