@@ -91,9 +91,37 @@ Phases; any failure exits non-zero and no phase is skipped:
      energies below their starts, each chain's pick the argmin of its
      candidates; wall, evaluations, ms per evaluation, host syncs and
      peak memory printed;
-  8. a `kernels` JSON line, then {"ok": true, "device": {...}} last.
+     Phase 5 ends with (b')'s fold again with folder.REPACK_IN_LOOP on
+     (relax round 2 as fa_stage, the in-loop repack): one pair launch per
+     spline-counted evaluation, energies finite and below each start,
+     the first fa_stage energy and gradient held to the plain spline path
+     (FOLD_START_TOL); its wall and packed clash energy beside (b')'s
+     with the switch off (line `repack`); the switch is restored;
+  8. the e2e static predictor through its CLI (python -m
+     trx2dy_torch.cli.predict, called in this process) at full width on
+     seeded random weights written once in the published formats
+     (model_1.pth.tar, the fairseq esm_msa1_t12_100M_UR50S.pt, which the
+     CLI upgrades as it loads): a synthetic a3m of E2E_ROWS rows at
+     L = E2E_L, filtered to filter500.a3m, -nrows 500 -nrec 3; at the
+     CLI's default (bf16 weights) and with --no-bf16, each exactly
+     E2E_LAUNCHES triangle attention launches, the four files checked
+     (probability maps of 37/25/25/13 bins summing to 1 within
+     E2E_NORM_TOL, pLDDT finite in [0, 1], a PDB of L residues with pLDDT
+     B-factors, plddt.csv); the float32 run recomputed with the plain
+     attention on the card: probabilities within PLAIN_PATH_TOL, pLDDT
+     within E2E_PLDDT_TOL, CA within E2E_CA_TOL; the kernel held to
+     float64 within TRI_ATTN_TOL x max(1, max |v|) on the first and the
+     last float32 inputs the bf16 run gave it; reported: the bf16 run
+     against float32 and against itself on the plain attention, and each
+     map's saturation (median largest probability, share of pairs whose
+     most probable bin differs). Wall per run split into MSA filter,
+     weights, ESM forward, features, each cycle's trunk and structure
+     module, and writing, peak memory, and the attention kernel's share of
+     the device time of a float32 trunk forward traced by torch.profiler
+     (lines `e2e`, `e2e check`);
+  9. a `kernels` JSON line, then {"ok": true, "device": {...}} last.
 
-Launch counts are set to 0 just before each request of phases 4 to 7 and
+Launch counts are set to 0 just before each request of phases 4 to 8 and
 read just after it; a kernel of a path that did not launch fails the run.
 
 It exits non-zero, printing no result, where CUDA is unavailable or the
@@ -101,6 +129,7 @@ port is not beside it.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 import os
@@ -172,6 +201,18 @@ CLUSTERS = 4               # --n_clusters of the cluster CLI
 # depth cut: 300 took 85.5 s on a host where fold (a) took 159 s, and the
 # chip hosts differ by up to 2x (PERF.md), so 150 keeps it near 90 s
 CHAIN_NPZ_CHAINS, CHAIN_CANDIDATES, CHAIN_FOLD_ITERS = 4, 2, 150
+# phase 8, the e2e predictor at full width: ESM-MSA-1b at 12 x 768 x 12
+# heads, Folding at dim 128, depth 12, 8 structure-module blocks, 12 IPA
+# heads, on a synthetic a3m of E2E_ROWS rows at L = E2E_L filtered to
+# E2E_NROWS, E2E_RECYCLES recycles: 2 attentions x 12 blocks x 4 cycles
+E2E_L, E2E_ROWS, E2E_NROWS, E2E_RECYCLES = 256, 1000, 500, 3
+E2E_LAUNCHES = 2 * DEPTH * (1 + E2E_RECYCLES)
+E2E_NORM_TOL = 1e-5        # probability maps sum to 1
+E2E_PLDDT_TOL = 1e-3       # pLDDT, kernel path vs plain path (f32)
+# CA coordinates (A), kernel path vs plain path (f32): the 8 IPA blocks
+# and 4 cycles amplify the attention core's float32 rounding on random
+# weights; 1.1e-3 A apart on an H100 (PERF.md)
+E2E_CA_TOL = 0.01
 
 # Data-sheet peaks: float32 outside the tensor cores, memory rate, dense
 # TF32 on the tensor cores.
@@ -1253,11 +1294,83 @@ def fold_phase(dev, work: Path, npz_b: str, seq_b: str):
             check(float(np.abs(coords[name] - got).max()) < 1e-3,
                   f"{path}: {name} differs from the fold's atoms")
 
+    req_r = repack_check(dev, npz, seq_b, start_b, res_c, req_c, log_c)
+
     profs = [profile_chunk(energy_a, x0_a, dev),
              profile_chunk(relax_a, x0_a, dev, label="relax"),
              profile_chunk(cart_a, torch.zeros_like(delta).to(dev), dev,
                            label="cartesian")]
-    return [req_a, req_b, req_c], profs, res_a.atoms
+    return [req_a, req_b, req_c, req_r], profs, res_a.atoms
+
+
+def repack_check(dev, npz: dict, seq: str, start, res_off, req_off,
+                 log_off) -> dict:
+    """(b')'s fold with folder.REPACK_IN_LOOP on, from the same seed: one
+    pair launch per spline-counted evaluation, energies below their
+    starts, relax round 2 run as fa_stage, the first fa_stage energy and
+    gradient held to the plain spline path; wall and packed clash energy
+    against (b') with the switch off. The switch is restored."""
+    from trx2dy_torch.physics import folder, sidechain
+
+    first = {}
+    fa_fun = folder._fa_weighted_fun
+
+    def capture(*args):
+        fun = fa_fun(*args)
+
+        def recorded(xx):
+            first.setdefault("fun", fun)
+            first.setdefault("x", xx.detach().clone())
+            return fun(xx)
+        return recorded
+
+    log = []
+    folder.REPACK_IN_LOOP = True
+    folder._fa_weighted_fun = capture
+    try:
+        res, req = run_fold_request(
+            "b' repack", CLI_L, CLI_DECOYS,
+            lambda: folder.fold_ensemble(
+                npz, seq, torch.Generator().manual_seed(5),
+                n_decoys=CLI_DECOYS, device=dev, stage_log=log), dev)
+    finally:
+        folder.REPACK_IN_LOOP = False
+        folder._fa_weighted_fun = fa_fun
+    check(not folder.REPACK_IN_LOOP, "repack: the switch was not restored")
+    print("stage_log b' repack " + json.dumps(log), flush=True)
+    check_fold("b' repack", res.energy, start)
+    labels = [lab for lab, _, _ in log]
+    check(labels.count("relax2_fa") == 4 * folder.RELAX_REPEATS
+          and "relax2" not in labels,
+          f"repack: relax round 2 did not run as fa_stage: {labels}")
+    req["fa_stage_first_eval"] = check_kernel_vs_plain(
+        "fa_stage energy b'", first["fun"], first["x"])
+    pin = sidechain.pack_input(seq, dev)
+
+    def packed_clash(r):
+        xyz, _, _ = sidechain.pack_ensemble(r.torsions, seq,
+                                            backbone=r.atoms, device=dev)
+        with torch.no_grad():
+            return sidechain._clash_energy(xyz, pin).double().cpu()
+    on, off = packed_clash(res), packed_clash(res_off)
+    out = {"wall_s_on": req["wall_s"], "wall_s_off": req_off["wall_s"],
+           "stages_s_on": sum(t for _, _, t in log),
+           "stages_s_off": sum(t for _, _, t in log_off),
+           "fa_stages_s": sum(t for lab, _, t in log if lab == "relax2_fa"),
+           "relax2_stages_s_off": sum(t for lab, _, t in log_off
+                                      if lab == "relax2"),
+           "energy_evals_on": req["energy_evals"],
+           "energy_evals_off": req_off["energy_evals"],
+           "restraint_free_evals_on": req["restraint_free_evals"],
+           "energy_median_on": res.energy.median().item(),
+           "energy_median_off": res_off.energy.median().item(),
+           "packed_clash_median_on": on.median().item(),
+           "packed_clash_median_off": off.median().item(),
+           "packed_clash_mean_on": on.mean().item(),
+           "packed_clash_mean_off": off.mean().item()}
+    print("repack " + json.dumps(out), flush=True)
+    req["repack"] = out
+    return req
 
 
 def dampened_chain_stage(dev, save: Path, name: str, seq: str,
@@ -1626,6 +1739,246 @@ def chain_fold_phase(dev, npz_paths: dict, seq: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 8: the e2e static predictor
+# --------------------------------------------------------------------------
+
+def write_e2e_models(model_dir: Path, esm_sizes=None, fold_sizes=None):
+    """Seeded random weights of ESM-MSA-1b and Folding (published sizes
+    unless given), written once in the published checkpoints' formats:
+    model_1.pth.tar, a state_dict, and esm_msa1_t12_100M_UR50S.pt, a
+    fairseq checkpoint (its keys under 'encoder.sentence_encoder.' or
+    'encoder.', row and column exchanged, and its training args as an
+    argparse.Namespace). Compressed npz files of random
+    weights took 32.6 s to write and 5.8 s a run to read on the card's
+    host (PERF.md)."""
+    from trx2dy_torch.models.convert import (
+        init_esm_state_dict, init_folding_state_dict,
+    )
+    model_dir.mkdir(parents=True, exist_ok=True)
+    swap = {"row": "column", "column": "row"}
+
+    def fairseq(key):
+        for a, b in swap.items():
+            if a in key:
+                key = key.replace(a, b)
+                break
+        return ("encoder.sentence_encoder." if key.startswith("layers.")
+                else "encoder.") + key
+    esm = init_esm_state_dict(21, **(esm_sizes or {}))
+    torch.save({"model": {fairseq(k): torch.from_numpy(v)
+                          for k, v in esm.items()},
+                "args": argparse.Namespace(arch="msa_transformer")},
+               model_dir / "esm_msa1_t12_100M_UR50S.pt")
+    fold = init_folding_state_dict(22, **(fold_sizes or {}))
+    torch.save({k: torch.from_numpy(v) for k, v in fold.items()},
+               model_dir / "model_1.pth.tar")
+
+
+def check_e2e_files(out_dir: Path, L: int, nrows: int) -> dict:
+    """The CLI's file contract; returns the saved arrays."""
+    from trx2dy_torch.io.a3m import parse_a3m
+    filt = out_dir / f"filter{nrows}.a3m"
+    check(filt.is_file(), f"e2e: {filt.name} missing")
+    rows = parse_a3m(str(filt), limit=10 ** 6)
+    check(rows.shape[1] == L and rows.shape[0] >= 2,
+          f"e2e: {filt.name} holds {rows.shape}")
+    bins = {"dist": 37, "omega": 25, "theta": 25, "phi": 13}
+    with np.load(out_dir / "model_1_results.npz") as f:
+        check(set(f.files) == {"plddt", *bins}, f"e2e: npz keys {f.files}")
+        out = {k: f[k] for k in f.files}
+    for key, n in bins.items():
+        p = out[key]
+        check(p.shape == (L, L, n) and p.dtype == np.float32,
+              f"e2e: {key} {p.shape} {p.dtype}")
+        check(bool(np.isfinite(p).all()), f"e2e: {key} not finite")
+        err = float(np.abs(p.sum(-1) - 1).max())
+        check(err <= E2E_NORM_TOL, f"e2e: {key} sums off 1 by {err}")
+    plddt = out["plddt"]
+    check(plddt.shape == (L,) and bool(np.isfinite(plddt).all())
+          and bool(((plddt >= 0) & (plddt <= 1)).all()),
+          f"e2e: pLDDT {plddt.shape} outside [0, 1] or not finite")
+    with open(out_dir / "model_1.pdb") as f:
+        atoms = [ln for ln in f if ln.startswith("ATOM")]
+    check(len({ln[22:26] for ln in atoms}) == L,
+          f"e2e: the PDB has {len({ln[22:26] for ln in atoms})} residues")
+    check(abs(float(atoms[0][60:66]) - 100 * plddt[0]) < 0.01,
+          "e2e: the PDB's B-factors are not the pLDDT")
+    lines = (out_dir / "plddt.csv").read_text().splitlines()
+    check(lines[0] == "Residue_Index,pLDDT" and len(lines) == L + 1
+          and lines[1] == f"1,{float(plddt[0])}",
+          f"e2e: plddt.csv starts {lines[:2]}")
+    return out
+
+
+def saturation(a: dict, b: dict) -> dict:
+    """Per map: the median over (i, j) of each distribution's largest
+    probability in a and in b, and the share of (i, j) whose most probable
+    bin differs between them."""
+    out = {}
+    for key in GRIDS:
+        out[key] = {"median_max_p": [float(np.median(x[key].max(-1)))
+                                     for x in (a, b)],
+                    "mode_flips": float(np.mean(a[key].argmax(-1)
+                                                != b[key].argmax(-1)))}
+    return out
+
+
+def trunk_device_split(call) -> dict:
+    """One trunk forward, call(), traced by torch.profiler (warm): the
+    device time of the attention kernel and of every kernel, in ms."""
+    from torch.profiler import ProfilerActivity, profile
+    with torch.inference_mode():
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+    events = prof.key_averages()
+    total = sum(event_device_us(e) for e in events) / 1e3
+    attn = sum(event_device_us(e) for e in events
+               if "tri_attn_fwd_kernel" in e.key) / 1e3
+    return {"tri_attn_device_ms": attn, "all_kernels_device_ms": total,
+            "tri_attn_share_of_trunk_device": attn / total if total else None}
+
+
+def e2e_phase(dev, work: Path, L=E2E_L, rows=E2E_ROWS, nrows=E2E_NROWS,
+              recycles=E2E_RECYCLES, esm_sizes=None, fold_sizes=None) -> dict:
+    """Phase 8: the e2e predictor's CLI at the default bf16 and in float32
+    (each E2E_LAUNCHES attention launches, counted from 0 per run), both
+    recomputed on the plain attention; the kernel held against float64 on
+    the inputs the bf16 run gave it; the maps' saturation; wall split,
+    memory, and the kernel's share of a traced trunk forward."""
+    import trx2dy_torch.models.predictor2d as p2d
+    from trx2dy_torch.cli import predict
+    from trx2dy_torch.ops.triangle_attention import (
+        tri_attn_core, tri_attn_core_plain,
+    )
+
+    mdir = work / "e2e_models"
+    t0 = time.perf_counter()
+    write_e2e_models(mdir, esm_sizes, fold_sizes)
+    t_weights = time.perf_counter() - t0
+    a3m = work / f"e2e{L}.a3m"
+    write_synthetic_a3m(a3m, L, rows, seed=2 * L + 1)
+    depth = (fold_sizes or {}).get("depth", DEPTH)
+    expected = 2 * depth * (1 + recycles)
+
+    def run(tag, *flags, core=tri_attn_core):
+        out_dir = work / f"e2e_{tag}"
+        timings = []
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        tri_attn_core.launches = 0
+        kernel_core, p2d.tri_attn_core = p2d.tri_attn_core, core
+        try:
+            t0 = time.perf_counter()
+            res = predict.main(["-i", str(a3m), "-o", str(out_dir), "-mdir",
+                                str(mdir), "-nrows", str(nrows), "-nrec",
+                                str(recycles), "--device", str(dev), *flags],
+                               timings=timings)
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+        finally:
+            p2d.tri_attn_core = kernel_core
+        launched = tri_attn_core.launches
+        req = {"run": tag, "L": L, "rows": rows, "nrows": nrows,
+               "recycles": recycles, "wall_s": wall,
+               "stages_s": {k: v for k, v in timings},
+               "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+               "tri_attn_launches": launched}
+        print("e2e " + json.dumps(req), flush=True)
+        arrays = check_e2e_files(out_dir, L, nrows)
+        arrays["ca"] = res["atom14"][:, 1].double().cpu().numpy()
+        check(bool(np.isfinite(res["atom14"].double().cpu().numpy()).all()),
+              f"e2e {tag}: non-finite atom14")
+        return arrays, req
+
+    # the bf16 run keeps the first and the last inputs its attention
+    # kernel was given; the float32 run, its first trunk call
+    seen = {}
+
+    def keep_inputs(q, k, v, bias, wise):
+        seen.setdefault("first", (q, k, v, bias, wise))
+        seen["last"] = (q, k, v, bias, wise)
+        return tri_attn_core(q, k, v, bias, wise)
+
+    bf16, req_bf16 = run("bf16", core=keep_inputs)
+    trunk_forward = p2d.Predictor2D.forward
+
+    def keep_trunk_call(self, *args, **kwargs):
+        seen.setdefault("trunk", (self, args, kwargs))
+        return trunk_forward(self, *args, **kwargs)
+
+    p2d.Predictor2D.forward = keep_trunk_call
+    try:
+        f32, req_f32 = run("f32", "--no-bf16")
+    finally:
+        p2d.Predictor2D.forward = trunk_forward
+    for req in (req_bf16, req_f32):
+        check(req["tri_attn_launches"] == expected,
+              f"e2e {req['run']}: {req['tri_attn_launches']} attention "
+              f"launches, expected {expected}")
+    plain, req_plain = run("plain", "--no-bf16", core=tri_attn_core_plain)
+    bf16_plain, req_bf16_plain = run("bf16_plain", core=tri_attn_core_plain)
+    for req in (req_plain, req_bf16_plain):
+        check(req["tri_attn_launches"] == 0,
+              f"e2e {req['run']}: the kernel launched on the plain path")
+
+    # the kernel on the bf16 run's own inputs (float32 by then), against
+    # float64, as the kernel phase holds it on random inputs
+    bf16_inputs_err = {}
+    for which in ("first", "last"):
+        q, k, v, bias, wise = seen[which]
+        check(all(t.dtype == torch.float32 for t in (q, k, v, bias)),
+              f"e2e bf16: the attention kernel was given "
+              f"{[t.dtype for t in (q, k, v, bias)]}")
+        ref = tri_attn_core_plain(q.double(), k.double(), v.double(),
+                                  bias.double(), wise)
+        err = (tri_attn_core(q, k, v, bias, wise).double() - ref) \
+            .abs().max().item()
+        scale = max(1.0, v.abs().max().item())
+        bf16_inputs_err[which] = err
+        check(err <= TRI_ATTN_TOL * scale,
+              f"e2e bf16: the kernel is {err} from float64 on the run's "
+              f"{which} inputs (max |v| {scale})")
+    del seen["first"], seen["last"], q, k, v, bias, ref
+
+    def diff(a, b):
+        return {"probabilities": max(float(np.abs(a[k] - b[k]).max())
+                                     for k in GRIDS),
+                "plddt": float(np.abs(a["plddt"] - b["plddt"]).max()),
+                "ca": float(np.abs(a["ca"] - b["ca"]).max())}
+    module, args, kwargs = seen.pop("trunk")
+    trunks = [v for k, v in req_f32["stages_s"].items()
+              if k.startswith("trunk_")]
+    split = trunk_device_split(lambda: module(*args, **kwargs))
+    del module, args, kwargs
+    split["trunk_wall_ms_f32"] = 1e3 * sum(trunks) / len(trunks)
+    out = {"write_weights_s": t_weights,
+           "f32_vs_plain": diff(f32, plain),
+           "bf16_vs_plain": diff(bf16, bf16_plain),
+           "bf16_vs_f32": diff(bf16, f32),
+           "bf16_kernel_vs_f64_on_run_inputs": bf16_inputs_err,
+           "saturation_bf16_vs_f32": saturation(bf16, f32),
+           "saturation_bf16_vs_bf16_plain": saturation(bf16, bf16_plain),
+           "plddt_mean": {"bf16": float(bf16["plddt"].mean()),
+                          "f32": float(f32["plddt"].mean())},
+           "trunk_f32": split}
+    print("e2e check " + json.dumps(out), flush=True)
+    d = out["f32_vs_plain"]
+    check(d["probabilities"] <= PLAIN_PATH_TOL,
+          f"e2e: kernel path differs from plain path by "
+          f"{d['probabilities']} in probability")
+    check(d["plddt"] <= E2E_PLDDT_TOL,
+          f"e2e: pLDDT differs from the plain path by {d['plddt']}")
+    check(d["ca"] <= E2E_CA_TOL,
+          f"e2e: CA differs from the plain path by {d['ca']} A")
+    return {"runs": [req_bf16, req_f32, req_plain, req_bf16_plain], **out,
+            "tri_attn_launches": req_bf16["tri_attn_launches"]
+            + req_f32["tri_attn_launches"]}
+
+
 def kernel_summary(kernel_rows, spline_rows, launches: int, folds,
                    run_single=None, chain_fold=None) -> list:
     """The `kernels` line: every kernel with its launches on the main path,
@@ -1649,6 +2002,9 @@ def kernel_summary(kernel_rows, spline_rows, launches: int, folds,
         "bound_ms_3xtf32": at_max[0]["bound_ms_3xtf32"],
         "library_ms": mean("library_ms"),
         "shape": f"L={max(KERNEL_LENGTHS)}, H={HEADS}, D={HEAD_DIM}, f32; "
+                 "launches: the geometry requests' and the e2e predictor's "
+                 f"bf16 and f32 runs ({E2E_LAUNCHES} each; its bf16 path "
+                 "upcasts q, k, v and the bias to this f32 kernel); "
                  "times are the mean of the row- and column-wise calls, "
                  "taken through the wrapper by CUDA events (one launch of "
                  "milliseconds, so kernel and wrapper time are one), "
@@ -1787,10 +2143,13 @@ def main() -> int:
         print(f"elapsed {time.perf_counter() - t0:.1f} s", flush=True)
         chain = chain_fold_phase(dev, outputs[CLI_L], query)
         print(f"elapsed {time.perf_counter() - t0:.1f} s", flush=True)
+        e2e = e2e_phase(dev, WORK)
+        print(f"elapsed {time.perf_counter() - t0:.1f} s", flush=True)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
-    kernels = kernel_summary(kernel_rows, spline_rows, launches, folds, run,
+    kernels = kernel_summary(kernel_rows, spline_rows,
+                             launches + e2e["tri_attn_launches"], folds, run,
                              chain)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,10 @@
 
 - Nothing in trx2dy_torch/ or chip_smoke.py imports jax or trx2dy.
 - Entry points (the geometry stage, the fold, the chain fold, packing,
-  run_single, the analysis layer and the CLIs) default to CUDA and raise
-  where there is none, before writing anything, rather than carrying on on
-  the CPU; they switch TF32 off.
+  run_single, the analysis layer, the e2e predictor and the CLIs) default
+  to CUDA and raise where there is none, before writing anything, rather
+  than carrying on on the CPU; they switch TF32 and bf16 reduced-precision
+  reductions off.
 - chip_smoke.py fails, printing no result, without a CUDA device and in a
   directory that holds nothing else of the repo.
 """
@@ -21,8 +22,10 @@ import torch
 
 from trx2dy_torch.analysis import cluster, evaluate, tmscore
 from trx2dy_torch.cli import cluster as cluster_cli
+from trx2dy_torch.cli import convert as convert_cli
 from trx2dy_torch.cli import evaluate as evaluate_cli
 from trx2dy_torch.cli import fold as fold_cli
+from trx2dy_torch.cli import predict as predict_cli
 from trx2dy_torch.cli import run_inference as run_inference_cli
 from trx2dy_torch.device import resolve_device
 from trx2dy_torch.dynamics.driver import (
@@ -120,12 +123,33 @@ def test_analysis_and_chain_fold_entry_points_raise_without_cuda(
     assert list(tmp_path.iterdir()) == []
 
 
+def test_e2e_cli_entry_points_default_to_cuda_and_raise(monkeypatch,
+                                                         tmp_path):
+    """cli/predict and cli/convert default --device to cuda and refuse
+    without CUDA before reading or writing anything."""
+    for cli in (predict_cli, convert_cli):
+        assert cli.build_parser().get_default("device") == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    missing = str(tmp_path / "missing")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        predict_cli.main(["-i", missing + ".a3m", "-o",
+                          str(tmp_path / "out"), "-mdir", missing])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        convert_cli.main(["--in", missing + ".pt", "--out",
+                          str(tmp_path / "w.npz")])
+    assert list(tmp_path.iterdir()) == []
+
+
 def test_resolve_device_turns_tf32_off(monkeypatch):
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul,
+                        "allow_bf16_reduced_precision_reduction", True)
     assert resolve_device("cpu") == torch.device("cpu")
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
+    assert not \
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
 
 
 def _run_smoke(cwd: Path, env_extra=None):

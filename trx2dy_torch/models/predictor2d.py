@@ -1,12 +1,13 @@
-"""Predictor2D — the trRosettaX2 2D-geometry trunk (Dynamics flavor), inference.
+"""Predictor2D — the trRosettaX2 2D-geometry trunk, inference.
 
 PyTorch counterpart of trx2dy/models/predictor2d.py (Predictor2D with
-dim=128, depth=12, msa_tie_row_attn=True, in_dim=526). Module and parameter
-names follow the checkpoint's state_dict keys (prefix "net." from the
-DistPredictorBaseline wrapper), so the pretrained `.pth` files and the JAX
-package's flat param dicts load by name. `nn.Sequential` placeholders stand
-where a key carries an index (`to_gate.0`, `linear2.1`, `feed_forward.3`).
-Some parameters exist in the checkpoint and are never read, e.g.
+dim=128, depth=12, msa_tie_row_attn=True). Module and parameter names
+follow the checkpoint's state_dict keys (prefix "net." from the Dynamics
+checkpoints' DistPredictorBaseline wrapper, "net2d." inside the e2e
+Folding model), so the pretrained `.pth` files and the JAX package's flat
+param dicts load by name. `nn.Sequential` placeholders stand where a key
+carries an index (`to_gate.0`, `linear2.1`, `feed_forward.3`). Some
+parameters exist in the checkpoint and are never read, e.g.
 `attn_width.pair_norm`/`pair_linear`; they are kept so the keys line up.
 
 Per block (reference order):
@@ -16,11 +17,30 @@ Per block (reference order):
   x  = TriUpdate(x)                       4x [tri-op + Res2Net conv] + trans
   m  = UpdateM(x, m)                      pair-attention -> MSA + FF
 
+Two flavours share the module. The Dynamics one reads 526 pair features
+and 21 MSA tokens. The e2e one (attn_conv_e2e.py:525-576) reads the 2642
+ESM-MSA pair features and ESM-vocabulary tokens, adds `linear_emb` of the
+ESM representations to the token embedding (msa_emb) and the recycling
+embeddings to m[0] and x (rec_reprs), and can return its pair and MSA
+representations; in_dim and the vocabulary come from the checkpoint.
+
+Weights may be bfloat16 (convert.cast_params, the reference's autocast):
+Linear and Conv2d then cast their input to the weight's dtype and add the
+float32 bias after the product, and the norms keep float32 statistics and
+return the input's dtype, as in JAX. So a projection without bias (to_q,
+to_kv, to_qkv, linear_for_pair, pair_linear) yields bfloat16. The
+triangle attention core takes float32 only: in bf16 mode its q, k, v and
+pair bias are cast to float32 first, on the card and on the CPU alike, so
+the kernel and its plain version compute one function; that core is then
+more precise than JAX's bf16 einsums. With float32 weights every
+operation is the one it was before bf16 existed.
+
 Works unbatched and channel-last: pair x is (L, L, D), MSA m is (R, L, D).
-Dropout is identity (inference only); remat, the e2e inputs (msa_emb,
-rec_reprs) and bf16 weights are not part of this module.
+Dropout is identity (inference only); remat is not part of this module.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -43,6 +63,18 @@ _EPS = 1e-5
 # --------------------------------------------------------------------------
 # primitive layers
 # --------------------------------------------------------------------------
+
+class Linear(nn.Linear):
+    """nn.Linear; with a weight of another dtype than float32 (bf16), the
+    input is cast to it and the float32 bias added after the product."""
+
+    def forward(self, x):
+        w, b = self.weight, self.bias
+        if w.dtype == torch.float32 and x.dtype == torch.float32:
+            return F.linear(x, w, b)
+        y = F.linear(x.to(w.dtype), w)
+        return y if b is None else y + b
+
 
 class LayerNorm(nn.LayerNorm):
     """nn.LayerNorm with statistics in float32, output in the input dtype."""
@@ -74,17 +106,23 @@ class InstanceNorm(nn.Module):
 
 class Conv2d(nn.Conv2d):
     """Conv2d on channel-last (H, W, C); weight kept OIHW. 1x1 runs as a
-    product, 3x3 as a stride-1 SAME convolution."""
+    product, 3x3 as a stride-1 SAME convolution. With a bf16 weight the
+    input is cast to it and the float32 bias added after, as Linear."""
 
     def __init__(self, i: int, o: int, k: int):
         super().__init__(i, o, k, padding=k // 2)
 
     def forward(self, x):
+        w, b = self.weight, self.bias
+        cast = w.dtype != torch.float32 or x.dtype != torch.float32
+        fused_b = None if cast else b
+        x = x.to(w.dtype)
         if self.kernel_size == (1, 1):
-            return F.linear(x, self.weight[:, :, 0, 0], self.bias)
-        y = F.conv2d(x.permute(2, 0, 1)[None], self.weight, self.bias,
-                     padding=self.padding)
-        return y[0].permute(1, 2, 0)
+            y = F.linear(x, w[:, :, 0, 0], fused_b)
+        else:
+            y = F.conv2d(x.permute(2, 0, 1)[None], w, fused_b,
+                         padding=self.padding)[0].permute(1, 2, 0)
+        return y + b if cast else y
 
 
 class FeedForward(nn.Module):
@@ -93,7 +131,7 @@ class FeedForward(nn.Module):
     def __init__(self, d: int):
         super().__init__()
         self.feed_forward = nn.Sequential(
-            nn.Linear(d, 4 * d), nn.ReLU(), nn.Identity(), nn.Linear(4 * d, d))
+            Linear(d, 4 * d), nn.ReLU(), nn.Identity(), Linear(4 * d, d))
 
     def forward(self, x):
         return self.feed_forward(x)
@@ -134,11 +172,11 @@ class TriangleMultiplication(nn.Module):
         super().__init__()
         self.direct = direct
         self.norm = LayerNorm(d)
-        self.linear1 = nn.Linear(d, 2 * d)
-        self.linear2 = nn.Sequential(nn.Linear(d, 2 * d), nn.Sigmoid())
-        self.to_gate = nn.Sequential(nn.Linear(d, d), nn.Sigmoid())
+        self.linear1 = Linear(d, 2 * d)
+        self.linear2 = nn.Sequential(Linear(d, 2 * d), nn.Sigmoid())
+        self.to_gate = nn.Sequential(Linear(d, d), nn.Sigmoid())
         self.to_out = nn.Sequential(LayerNorm(d))
-        self.linear_out = nn.Linear(d, d)
+        self.linear_out = Linear(d, d)
 
     def forward(self, z):
         z = self.norm(z)
@@ -160,21 +198,22 @@ class TriangleAttention(nn.Module):
         self.wise = wise
         hd = TRI_HEADS * TRI_DIM_HEAD
         self.norm = LayerNorm(d)
-        self.to_qkv = nn.Linear(d, 3 * hd, bias=False)
-        self.linear_for_pair = nn.Linear(d, TRI_HEADS, bias=False)
-        self.to_gate = nn.Sequential(nn.Linear(d, d), nn.Sigmoid())
-        self.to_out = nn.Linear(hd, d)
+        self.to_qkv = Linear(d, 3 * hd, bias=False)
+        self.linear_for_pair = Linear(d, TRI_HEADS, bias=False)
+        self.to_gate = nn.Sequential(Linear(d, d), nn.Sigmoid())
+        self.to_out = Linear(hd, d)
 
     def forward(self, z):
         z = self.norm(z)
         L = z.shape[0]
+        # the core runs in float32 (a no-op cast with float32 weights)
         q, k, v = (t.reshape(L, L, TRI_HEADS, TRI_DIM_HEAD)
-                   for t in torch.chunk(self.to_qkv(z), 3, dim=-1))
+                   for t in torch.chunk(self.to_qkv(z).float(), 3, dim=-1))
         # (L, L, H) as a view of a head-major (H, L, L) product, so that
         # the kernel reads each head's bias tile contiguously
-        bias = torch.matmul(self.linear_for_pair.weight,
-                            z.reshape(L * L, -1).T).reshape(-1, L, L) \
-            .permute(1, 2, 0)
+        w = self.linear_for_pair.weight
+        bias = torch.matmul(w, z.reshape(L * L, -1).T.to(w.dtype)).float() \
+            .reshape(-1, L, L).permute(1, 2, 0)
         gate = self.to_gate(z)
         out = tri_attn_core(q, k, v, bias, self.wise)
         return self.to_out(gate * out.reshape(L, L, -1))
@@ -184,8 +223,8 @@ class PairTransition(nn.Module):
     def __init__(self, d: int = DIM):
         super().__init__()
         self.norm = LayerNorm(d)
-        self.linear1 = nn.Linear(d, 4 * d)
-        self.linear2 = nn.Sequential(nn.ReLU(), nn.Linear(4 * d, d))
+        self.linear1 = Linear(d, 4 * d)
+        self.linear2 = nn.Sequential(nn.ReLU(), Linear(4 * d, d))
 
     def forward(self, z):
         return self.linear2(self.linear1(self.norm(z)))
@@ -223,11 +262,11 @@ class SelfAttention(nn.Module):
     def __init__(self, d: int = DIM):
         super().__init__()
         inner = HEADS * DIM_HEAD
-        self.to_q = nn.Linear(d, inner, bias=False)
-        self.to_kv = nn.Linear(d, 2 * inner, bias=False)
-        self.to_out = nn.Linear(inner, d)
+        self.to_q = Linear(d, inner, bias=False)
+        self.to_kv = Linear(d, 2 * inner, bias=False)
+        self.to_out = Linear(inner, d)
         self.pair_norm = LayerNorm(d)
-        self.pair_linear = nn.Linear(d, HEADS, bias=False)
+        self.pair_linear = Linear(d, HEADS, bias=False)
 
     def _qkv(self, x):
         k, v = torch.chunk(self.to_kv(x), 2, dim=-1)
@@ -281,8 +320,8 @@ class UpdateX(nn.Module):
 
     def __init__(self, d: int = DIM):
         super().__init__()
-        self.proj_down1 = nn.Linear(d, 32)
-        self.proj_down2 = nn.Linear(32 * 32, d)
+        self.proj_down1 = Linear(d, 32)
+        self.proj_down2 = Linear(32 * 32, d)
 
     def forward(self, x, m):
         mm = self.proj_down1(m)                              # (R, L, 32)
@@ -298,8 +337,8 @@ class UpdateM(nn.Module):
         self.norm1 = LayerNorm(d)
         self.norm2 = LayerNorm(d)
         self.norm3 = LayerNorm(d)
-        self.linear1 = nn.Linear(d, HEADS)
-        self.linear2 = nn.Linear(d, d // HEADS)
+        self.linear1 = Linear(d, HEADS)
+        self.linear2 = Linear(d, d // HEADS)
         self.ff = FeedForward(d)
 
     def forward(self, x, m):
@@ -338,7 +377,7 @@ class RelPos(nn.Module):
 
     def __init__(self, d: int = DIM):
         super().__init__()
-        self.linear = nn.Linear(65, d)
+        self.linear = Linear(65, d)
 
     def forward(self, res_id):
         rel = (res_id[:, None] - res_id[None, :]).clamp(-32, 32) + 32
@@ -352,11 +391,17 @@ class InputEmb(nn.Module):
 
 
 class Predictor2D(nn.Module):
-    def __init__(self, depth: int = DEPTH, d: int = DIM, in_dim: int = IN_DIM):
+    """emb_dim: the width of the ESM representations read by `linear_emb`
+    (the e2e flavour); None for the Dynamics flavour, which has none."""
+
+    def __init__(self, depth: int = DEPTH, d: int = DIM, in_dim: int = IN_DIM,
+                 n_tokens: int = N_TOKENS, emb_dim: Optional[int] = None):
         super().__init__()
         self.bn1 = InstanceNorm(in_dim)
         self.conv1 = Conv2d(in_dim, d, 1)
-        self.token_emb = nn.Embedding(N_TOKENS, d)
+        self.token_emb = nn.Embedding(n_tokens, d)
+        if emb_dim is not None:
+            self.linear_emb = Linear(emb_dim, d)
         self.input_emb = InputEmb(d)
         self.net = Trunk(depth, d)
         self.to_dist_logits = Conv2d(d, 37, 1)
@@ -364,23 +409,36 @@ class Predictor2D(nn.Module):
         self.to_omega_logits = Conv2d(d, 25, 1)
         self.to_phi_logits = Conv2d(d, 13, 1)
 
-    def forward(self, f2d, msa):
+    def forward(self, f2d, msa, msa_emb=None, rec_reprs=None,
+                return_repr: bool = False, depth: Optional[int] = None):
         """f2d (L, L, in_dim) features, msa (R, L) tokens already capped to
-        the trunk's rows. Returns LOGITS {dist (L,L,37), omega (L,L,25),
-        theta (L,L,25), phi (L,L,13)}; the caller applies the softmax."""
+        the trunk's rows. e2e only: msa_emb (R, L, emb_dim) ESM
+        representations; rec_reprs {'single': (L, d), 'pair': (L, L, d)}
+        recycling embeddings; depth runs the first `depth` blocks. Returns
+        LOGITS {dist (L,L,37), omega (L,L,25), theta (L,L,25), phi
+        (L,L,13)}, the caller applies the softmax; with return_repr also
+        {'pair': x, 'msa': m}."""
         x = self.conv1(F.elu(self.bn1(f2d)))                 # (L, L, d)
         m = self.token_emb(msa.long())                       # (R, L, d)
+        if msa_emb is not None:
+            m = m + self.linear_emb(msa_emb)
+        if rec_reprs is not None:
+            m[0] += rec_reprs["single"]          # m's dtype, as JAX
+            x = x + rec_reprs["pair"]
         x = x + self.input_emb.relpos(
             torch.arange(f2d.shape[0], device=f2d.device))
-        for block in self.net.blocks:
+        for block in self.net.blocks[:depth]:
             x, m = block(x, m)
         sym = (x + x.transpose(0, 1)) * 0.5
-        return {
+        out = {
             "dist": self.to_dist_logits(sym),
             "theta": self.to_theta_logits(x),
             "omega": self.to_omega_logits(sym),
             "phi": self.to_phi_logits(x),
         }
+        if return_repr:
+            return out, {"pair": x, "msa": m}
+        return out
 
 
 class DistPredictor(nn.Module):

@@ -36,10 +36,22 @@ lanes entry once each. fold_chains, the public chain fold, takes one npz
 dict per chain: it compiles each distinct dict's restraints on the host,
 as fold_ensemble does, and builds every protocol stage as the same union
 form (compact.compact_restraints_lanes), so its evaluations launch the
-lanes entry once each too. The in-loop repacking switch (REPACK_IN_LOOP,
-off in JAX) is not ported. JAX's single-program driver
+lanes entry once each too. JAX's single-program driver
 (staged_execution=False, _protocol_jit) is a compile strategy of XLA; the
 port has one protocol driver.
+
+REPACK_IN_LOOP (off, as in JAX) switches fold_ensemble's relax round 2 to
+the in-loop repack stage (fa_stage, folder.py:684-713): each ramp stage
+packs chi on the current backbone, then minimises the torsions against
+the relax energy plus the full-atom clash of those frozen sidechains
+(_fa_weighted_fun). The relax part is the compacted pair-list energy, so
+each evaluation launches the pair entry once, and counts in
+minimize.STATS.evals; the packing counts in free_evals. As in JAX, the
+stage runs the whole batch (no converged-lane repacking), and its L-BFGS
+state starts with every lane frozen (JAX passes ~no_freeze,
+folder.py:700), so the torsions leave each stage as they came: the
+round's minimisation does not run. The port keeps that behaviour for
+parity (ROADMAP section 3).
 """
 from __future__ import annotations
 
@@ -73,6 +85,7 @@ from trx2dy_torch.physics.restraints import (
     compile_restraints, compile_restraints_af2, compile_restraints_gpcr,
     compile_restraints_idp, disulfide_pairs, restraint_masks,
 )
+from trx2dy_torch.physics import sidechain
 
 # FastRelax's score function: ref2015_cart with constraint weights 5/1/1
 # (folding.py:200-204); the torsion-space substitute keeps the centroid
@@ -119,6 +132,15 @@ GROWTH_HEADROOM = 1.08
 COMPACT_MIN_BATCH = 8
 LANE_REPACK_MIN_BATCH = 48
 
+# repack-in-the-loop (an A/B switch of the JAX package): the reference's
+# ramp_repack_min repacks rotamers before every ramp stage with chi in the
+# movemap (folding.py:224-228, 2relax_round2.txt); on, relax round 2 packs
+# chi on the current backbone per stage and adds the frozen sidechains'
+# full-atom clash to the score
+REPACK_IN_LOOP = False
+W_FA_CLASH = 1.0            # weight of the frozen-chi full-atom clash term
+REPACK_CHI_ITERS = 30       # chi L-BFGS budget per in-loop repack
+
 # Ramachandran basin table and probabilities (utils_ros.py:674-696)
 _BASIN_PHI = np.deg2rad([-140.0, -72.0, -122.0, -82.0, -61.0, 57.0])
 _BASIN_PSI = np.deg2rad([153.0, 145.0, 117.0, -14.0, -41.0, 39.0])
@@ -136,6 +158,20 @@ def _cart_r1_stages():
     """CART_SCHEDULE_R1 as ((w_vec, iters), ...) for the cartesian block."""
     return tuple((weights_to_vec(_ramped_relax_weights(fa, cst)), iters)
                  for fa, cst, iters in CART_SCHEDULE_R1)
+
+
+def _fa_weighted_fun(base, chi, pairs, pin):
+    """base (the relax energy, x (B, 3L) -> (B,)) + W_FA_CLASH x the
+    packing energy (clash, rotamer prior, disulfides) of the sidechains at
+    the frozen chi (B, L, 4) on the backbone of x."""
+    B = chi.shape[0]
+    chi_flat = chi.reshape(B, -1)
+
+    def fun(xx):
+        fa = sidechain._pack_energy(chi_flat, xx.reshape(B, 3, -1), pairs,
+                                    pin)
+        return base(xx) + W_FA_CLASH * fa
+    return fun
 
 
 def _project_torsions(x, atoms):
@@ -238,10 +274,12 @@ def _bucket_size(n: int) -> int:
 
 def _protocol_staged(x0, stages, max_iter: int, dist_on_ca: bool = False,
                      res_mask=None, stage_log: Optional[list] = None,
-                     relax=None, cart_r1: bool = False):
+                     relax=None, cart_r1: bool = False, pack=None):
     """The protocol over chunked L-BFGS stages: centroid stages, then with
     relax = (relax1, relax2) the two FastRelax rounds, with the round-1
-    cartesian block between them when cart_r1.
+    cartesian block between them when cart_r1. pack = (sidechain.PackInput,
+    disulfide pairs) runs relax round 2's stages as fa_stage (the in-loop
+    repack, REPACK_IN_LOOP).
 
     stages, relax1, relax2: compacted pair lists on the device
     (compact_to), each built once per fold, or the sampler's union stages
@@ -339,12 +377,37 @@ def _protocol_staged(x0, stages, max_iter: int, dist_on_ca: bool = False,
             # full-weight relax score, one value-and-gradient evaluation
             return lbfgs_init(energy(cr, w_relax), xx, freeze=~no_freeze).f
 
-        def relax_round(x, cr, schedule, label):
+        def fa_stage(x, cr, w, iters):
+            """ramp_repack_min's stand-in: pack chi on the current
+            backbone, minimise the torsions with the frozen-chi full-atom
+            clash added; the whole batch, every lane frozen as in JAX."""
+            t_st = time.perf_counter()
+            pin, pairs = pack
+            t = x.reshape(B, 3, -1)
+            chi0 = torch.full(t.shape[:1] + (t.shape[2], 4), np.pi,
+                              dtype=x.dtype, device=dev) * pin.chi_mask
+            _, _, chi, _ = sidechain._pack(t, chi0, pairs, pin,
+                                           REPACK_CHI_ITERS)
+            fun = _fa_weighted_fun(energy(cr, w), chi.detach(), pairs, pin)
+            st = lbfgs_init(fun, x, freeze=~no_freeze)
+            remaining = iters
+            while remaining > 0:
+                st = lbfgs_run(fun, st, min(STAGE_CHUNK, remaining))
+                remaining -= STAGE_CHUNK
+                if host_numpy(st.done).all():
+                    break
+            if stage_log is not None:
+                stage_log.append(("relax2_fa", st.k,
+                                  round(time.perf_counter() - t_st, 3)))
+            return st.x
+
+        def relax_round(x, cr, schedule, label, repack=False):
             best_x, best_f = x, full_f(x, cr)
             for _ in range(RELAX_REPEATS):
                 for fa, cst, iters in schedule:
-                    x = stage(x, cr, wvec(_ramped_relax_weights(fa, cst)),
-                              iters=iters, label=label)
+                    w = wvec(_ramped_relax_weights(fa, cst))
+                    x = fa_stage(x, cr, w, iters) if repack else \
+                        stage(x, cr, w, iters=iters, label=label)
                 # accept_to_best, on the device: no host sync
                 f = full_f(x, cr)
                 best_x = torch.where((f < best_f)[:, None], x, best_x)
@@ -363,7 +426,8 @@ def _protocol_staged(x0, stages, max_iter: int, dist_on_ca: bool = False,
                 weights_to_vec(SCOREFXN_RELAX), dist_on_ca=dist_on_ca,
                 res_mask=res_mask, stage_log=stage_log)
             x = _project_torsions(x, atoms)
-        x = relax_round(x, relax2, RELAX_SCHEDULE_R2, "relax2")
+        x = relax_round(x, relax2, RELAX_SCHEDULE_R2, "relax2",
+                        repack=pack is not None)
     f = lbfgs_init(energy(stages[-1], w_cent), x, freeze=~no_freeze).f
     return x, f
 
@@ -461,9 +525,15 @@ def fold_ensemble(npz: dict, seq: str,
                          dtype=torch.float32).to(dev)
     x0 = x0.reshape(x0.shape[0], 3 * L)
 
+    pack = None
+    if REPACK_IN_LOOP and fastrelax:
+        # no disulfide pairs in the loop: the CB-CB wells already restrain
+        # CYS pairs through every stage
+        pack = (sidechain.pack_input(seq, dev),
+                torch.zeros((0, 2), dtype=torch.int64, device=dev))
     x, f = _protocol_staged(x0, stages, max_iter, dist_on_ca=dist_on_ca,
                             res_mask=res_mask, stage_log=stage_log,
-                            relax=relax, cart_r1=cart)
+                            relax=relax, cart_r1=cart, pack=pack)
     if n_fold > n_decoys:
         keep = torch.argsort(f)[:n_decoys]
         x, f = x[keep], f[keep]
