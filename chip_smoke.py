@@ -138,10 +138,38 @@ Phases; any failure exits non-zero and no phase is skipped:
      memory with remat and without, the losses, and the logits attention
      core's share of one traced step's device time (lines `train cli`,
      `train step`, `train check`);
-  10. a `kernels` JSON line, then {"ok": true, "device": {...}} last.
+  10. the (dp, mp) mesh on the one card: two gloo ranks share it (NCCL
+     refuses two ranks on one device). Three worlds run at once: on the
+     (1, 2) mesh one full-width train step (phase 9's first target,
+     TRAIN_MSA_ROWS rows split 64/64 over mp, remat) and the geometry
+     request at PARALLEL_REQUEST_L through predict_geometry with its 500
+     trunk rows split; on the (2, 1) mesh fold (a)'s target and starts
+     through fold_ensemble_sharded (25 decoys a rank) without FastRelax at
+     SINGLE_ITERS, then packed sharded; and one process folding the same
+     through the staged fold. Meanwhile this process folds it through the
+     single program (staged_execution=False). Checked: the ranks' step
+     against one process on the card (loss and all gradients within
+     SHARDED_TRAIN_TOL), bit-identical across the ranks, 2 x depth
+     attention launches per rank, maps within PLAIN_PATH_TOL of the same
+     split run by two threads of this process with no gloo
+     (split_rows_logits), within SPLIT_MAP_TOL of one process, logits
+     within PLAIN_LOGIT_TOL of one process; the sharded fold's starts (as
+     it returns them, gathered) fold (a)'s in global decoy order, the
+     first energy and gradient at each within FOLD_START_TOL of fold
+     (a)'s, the ranks' results identical, its median
+     within FOLD_MEDIAN_TOL of the staged fold's, one pair launch per
+     evaluation per rank; the single program's first energy and gradient
+     against the plain dense path (FOLD_START_TOL), 4 dense launches per
+     evaluation; every energy below its start. Reported beside the
+     rounding baseline (the rows reversed): the per-tensor gradient and map
+     differences; step ms and peak memory per rank; the single program's
+     wall, evaluations and median beside the staged fold's (lines
+     `parallel train`, `parallel fold`, `fold {...}`);
+  11. a `kernels` JSON line, then {"ok": true, "device": {...}} last.
 
-Launch counts are set to 0 just before each request of phases 4 to 9 and
-read just after it; a kernel of a path that did not launch fails the run.
+Launch counts are set to 0 just before each request of phases 4 to 10
+and read just after it (in each rank for phase 10's ranks); a kernel of a
+path that did not launch fails the run.
 (b'), its repack fold and phases 6 and 7 run under short_relax(), the
 depth cut that keeps the script inside its time limit: every relax and
 round-1 cartesian stage at most RELAX_STAGE_ITERS iterations, the final
@@ -159,6 +187,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -221,9 +250,10 @@ CLUSTERS = 4               # --n_clusters of the cluster CLI
 # the chain fold: 4 chains from each model's L=64 pred_npz, 2 candidates a
 # chain, the sampler's 32-lane bucket, mode 2 with FastRelax and the
 # cartesian refinement; max_iter, the centroid stages' budget, is the one
-# depth cut: 300 took 85.5 s on a host where fold (a) took 159 s, and the
-# chip hosts differ by up to 2x (PERF.md), so 150 keeps it near 90 s
-CHAIN_NPZ_CHAINS, CHAIN_CANDIDATES, CHAIN_FOLD_ITERS = 4, 2, 150
+# depth cut: 300 took 85.5 s on a host where fold (a) took 159 s, 150 took
+# 108 s on one where it took 244 s (the chip hosts differ by up to 2x,
+# PERF.md), so 75 makes room for phase 10
+CHAIN_NPZ_CHAINS, CHAIN_CANDIDATES, CHAIN_FOLD_ITERS = 4, 2, 75
 # the depth cut that makes room for phase 9: (b'), its repack fold,
 # run_single (phase 6) and the chain fold (phase 7) run each relax and
 # round-1 cartesian stage for at most RELAX_STAGE_ITERS L-BFGS iterations
@@ -265,6 +295,35 @@ ZERO_GRAD = 1e-6
 # the largest |logit|: its maps saturate (random-weight training), so the
 # probabilities alone could not tell the two cores apart
 PLAIN_LOGIT_TOL = 1e-3
+
+# phase 10, the (dp, mp) mesh on the one card: PARALLEL_RANKS gloo ranks
+# share it (NCCL refuses two ranks on one device). One full-width train
+# step (phase 9's first target, TRAIN_MSA_ROWS rows split 64/64 over mp,
+# remat) is held to the step of one process on the card, the geometry
+# request at PARALLEL_REQUEST_L (phase 4's, 500 trunk rows split 250/250)
+# to one process, each beside the same process with its MSA rows 1..
+# reversed (a reordering of every sum over rows that leaves the result
+# unchanged in exact arithmetic: the rounding baseline). The train step's
+# loss and gradients are held as relative differences, the gradients as
+# |all differences| / |all gradients|, the largest per-tensor difference
+# (ZERO_GRAD rule) reported: reordering the rows alone moves it by 2.1e-3
+# on an H100 (PERF.md); the request by its logits (PLAIN_LOGIT_TOL), its
+# maps reported. Fold (a)'s target and starts, without FastRelax at
+# SINGLE_ITERS L-BFGS iterations a stage (the depth cut: phase 10 took
+# 279 s at fold (a)'s full settings on a slow host), sharded over dp=2,
+# held to fold (a)'s first evaluations and to the staged fold at the same
+# settings; the same fold through the single program
+# (staged_execution=False) beside that staged fold
+PARALLEL_RANKS, PARALLEL_REQUEST_L = 2, 64
+SHARDED_TRAIN_TOL = 1e-4
+# the mp-split request's maps against one process. Splitting the rows in
+# two moves them 4.9e-3 (L=256) and 5.4e-3 (L=64) on an H100, as far as
+# the same split run by two threads of one process with no gloo
+# (split_rows_logits) moves them (PERF.md, PR 10): the halved row counts'
+# rounding. The gloo ranks are held to that split within PLAIN_PATH_TOL,
+# and to one process within about twice the readings
+SPLIT_MAP_TOL = 1e-2
+SINGLE_ITERS = 30
 
 # Data-sheet peaks: float32 outside the tensor cores, memory rate, dense
 # TF32 on the tensor cores.
@@ -942,7 +1001,8 @@ def start_torsions(seed: int, L: int, B: int, dev):
 def plain_splines():
     """The fold's and the sampler's restraint splines on their plain
     PyTorch versions (the lanes entry's per JAX's lane-major layout, its
-    tables expanded to one per lane)."""
+    tables expanded to one per lane; the dense entry's as on the CPU)."""
+    import trx2dy_torch.ops.spline_energy as spline_ops
     import trx2dy_torch.physics.compact as compact
     from trx2dy_torch.ops.spline_energy import expand_lane_tables
     from trx2dy_torch.physics.spline import masked_spline_energy_lanes, \
@@ -959,13 +1019,16 @@ def plain_splines():
             out.append(masked_spline_energy_lanes(
                 y.transpose(0, 1), m.transpose(0, 1), x, q.T, act.T))
         return torch.stack(out)
-    kernels = compact.spline_energy_pairs, compact.spline_energy_lanes
+    kernels = (compact.spline_energy_pairs, compact.spline_energy_lanes,
+               spline_ops._dense_fwd)
     compact.spline_energy_pairs = plain
     compact.spline_energy_lanes = plain_lanes
+    spline_ops._dense_fwd = spline_ops.spline_dense_plain
     try:
         yield
     finally:
-        compact.spline_energy_pairs, compact.spline_energy_lanes = kernels
+        (compact.spline_energy_pairs, compact.spline_energy_lanes,
+         spline_ops._dense_fwd) = kernels
 
 
 @contextlib.contextmanager
@@ -987,9 +1050,12 @@ def short_relax():
             setattr(folder, n, v)
 
 
-def run_fold_request(label: str, L: int, B: int, fn, dev):
+def run_fold_request(label: str, L: int, B: int, fn, dev,
+                     dense: bool = False):
     """Drive fn() with every launch counter at 0 just before and read just
-    after; prints and returns (fn's result, the request's numbers)."""
+    after; prints and returns (fn's result, the request's numbers). Each
+    spline-counted evaluation launches the pair entry once, or with
+    dense (the single-program fold) the dense entry four times."""
     from trx2dy_torch.ops.spline_energy import (
         spline_energy_dense, spline_energy_pairs,
     )
@@ -1011,10 +1077,11 @@ def run_fold_request(label: str, L: int, B: int, fn, dev):
            "spline_pair_launches": spline_energy_pairs.launches,
            "spline_dense_launches": spline_energy_dense.launches}
     print("fold " + json.dumps(req), flush=True)
-    check(STATS.evals > 0 and
-          spline_energy_pairs.launches == STATS.evals,
-          f"fold {label}: {spline_energy_pairs.launches} spline launches "
-          f"for {STATS.evals} energy evaluations, expected 1 per evaluation")
+    launched, per_eval = (spline_energy_dense.launches, 4) if dense else \
+        (spline_energy_pairs.launches, 1)
+    check(STATS.evals > 0 and launched == per_eval * STATS.evals,
+          f"fold {label}: {launched} spline launches for {STATS.evals} "
+          f"energy evaluations, expected {per_eval} per evaluation")
     return out, req
 
 
@@ -1382,7 +1449,8 @@ def fold_phase(dev, work: Path, npz_b: str, seq_b: str):
              profile_chunk(relax_a, x0_a, dev, label="relax"),
              profile_chunk(cart_a, torch.zeros_like(delta).to(dev), dev,
                            label="cartesian")]
-    return [req_a, req_b, req_c, req_r], profs, res_a.atoms
+    fold_a = {"x0": x0_a, "start": start_a, "energy": res_a.energy}
+    return [req_a, req_b, req_c, req_r], profs, res_a.atoms, fold_a
 
 
 def repack_check(dev, npz: dict, seq: str, start, res_off, req_off,
@@ -2445,10 +2513,472 @@ def train_phase(dev, work: Path, L=TRAIN_L, rows=TRAIN_ROWS,
             "tri_attn_launches": request_launches}
 
 
-def kernel_summary(kernel_rows, spline_rows, launches: int, folds,
-                   run_single=None, chain_fold=None) -> list:
-    """The `kernels` line: every kernel with its launches on the main path,
-    its error, its times and its bound."""
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _peak_gib(dev, reset: bool = False):
+    """The device's peak memory since the last reset (None on the CPU)."""
+    if dev.type != "cuda":
+        return None
+    if reset:
+        torch.cuda.reset_peak_memory_stats(dev)
+    return torch.cuda.max_memory_allocated(dev) / 2 ** 30
+
+
+def _rank_device(device: str):
+    from trx2dy_torch.device import resolve_device
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)       # every rank shares the one card
+    return dev
+
+
+def trunk_logits(model, msa, mesh=None, reverse: bool = False) -> dict:
+    """The geometry request's logits (predict_geometry's trunk call) on the
+    CPU, the trunk rows split over the mesh's mp axis; reverse: rows 1.. in
+    reverse order, which reorders the sums over rows and leaves the
+    logits unchanged in exact arithmetic (the rounding baseline)."""
+    from trx2dy_torch.models.features import get_f2d
+    from trx2dy_torch.models.predictor2d_infer import MSA_CUTOFF
+    from trx2dy_torch.parallel.mesh import axis, shard
+    dev = next(model.parameters()).device
+    tokens = torch.as_tensor(np.asarray(msa, dtype=np.int64), device=dev)
+    rows = tokens[:MSA_CUTOFF]
+    if reverse:
+        rows = torch.cat([rows[:1], rows[1:].flip(0)])
+    with torch.inference_mode():
+        out = model(get_f2d(tokens), shard(rows, mesh, "mp"),
+                    mp=axis(mesh, "mp")[0])
+    return {k: v.float().cpu() for k, v in out.items()}
+
+
+class ThreadRanks:
+    """n mp ranks as threads of this process, with no process group: the
+    collectives parallel/mesh.py calls (all_reduce, all_gather, get_rank,
+    get_world_size), done here on the card's one stream. A sum adds the
+    ranks' parts in rank order (for two ranks the same bits as gloo's).
+    The witness of the mp-split trunk's rounding (split_rows_logits)."""
+
+    def __init__(self, n: int):
+        self.n = n
+        self.local = threading.local()
+        self.barrier = threading.Barrier(n)
+        self.slots = [None] * n
+
+    def get_rank(self, group=None) -> int:
+        return self.local.rank
+
+    def get_world_size(self, group=None) -> int:
+        return self.n
+
+    def _parts(self, t):
+        self.slots[self.local.rank] = t
+        self.barrier.wait()
+        return list(self.slots)
+
+    def all_reduce(self, t, group=None) -> None:
+        parts = self._parts(t)
+        total = parts[0].clone()
+        for part in parts[1:]:
+            total += part
+        self.barrier.wait()          # every rank has queued its reads
+        t.copy_(total)
+
+    def all_gather(self, out, t, group=None) -> None:
+        for o, part in zip(out, self._parts(t)):
+            o.copy_(part)
+        self.barrier.wait()
+
+
+def split_rows_logits(model, msa, n: int) -> dict:
+    """trunk_logits with the trunk rows split in n equal parts, each run by
+    a thread of this process as an mp rank (ThreadRanks in place of
+    torch.distributed in parallel/mesh.py): the mp path's arithmetic at
+    the ranks' shapes, with no gloo and no second process. Rank 0's
+    logits."""
+    import trx2dy_torch.parallel.mesh as mesh_mod
+    from trx2dy_torch.models.features import get_f2d
+    from trx2dy_torch.models.predictor2d_infer import MSA_CUTOFF
+    dev = next(model.parameters()).device
+    tokens = torch.as_tensor(np.asarray(msa, dtype=np.int64), device=dev)
+    rows = tokens[:MSA_CUTOFF]
+    f2d = get_f2d(tokens)
+    size = rows.shape[0] // n
+    ranks = ThreadRanks(n)
+    outs, errors = [None] * n, []
+
+    def run(r):
+        ranks.local.rank = r
+        try:
+            with torch.inference_mode():
+                outs[r] = model(f2d, rows[r * size:(r + 1) * size],
+                                mp=ranks)
+        except BaseException as e:      # noqa: BLE001 - raised below
+            errors.append(e)
+            ranks.barrier.abort()
+
+    saved = mesh_mod.dist
+    mesh_mod.dist = ranks
+    try:
+        threads = [threading.Thread(target=run, args=(r,))
+                   for r in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        mesh_mod.dist = saved
+    if errors:
+        raise errors[0]
+    return {k: v.float().cpu() for k, v in outs[0].items()}
+
+
+def logit_diff(logits: dict, ref: dict) -> tuple:
+    """(largest |logits - ref| / max |ref| over the heads, largest
+    |softmax - softmax(ref)|)."""
+    rel = max(float((logits[k] - r).abs().max() / r.abs().max())
+              for k, r in ref.items())
+    maps = max(float((torch.softmax(logits[k], -1)
+                      - torch.softmax(r, -1)).abs().max())
+               for k, r in ref.items())
+    return rel, maps
+
+
+def train_step_once(work: Path, sizes: dict, dev, mesh=None,
+                    reverse: bool = False) -> tuple:
+    """One make_train_step step (remat, no dropout) at full width on phase
+    9's first target from fresh weights: (loss, the clipped gradients the
+    step applied, ms, peak GiB, the model). reverse: rows 1.. in reverse
+    order (the rounding baseline, as in trunk_logits)."""
+    from trx2dy_torch.models.convert import build_model, init_state_dict
+    from trx2dy_torch.models.train import (
+        init_train_state, make_optimizer, make_train_step,
+    )
+    f2d, msa, labels, mask = train_inputs(
+        work / "train_data" / "train0.a3m", sizes["msa_rows"], dev)
+    if reverse:
+        msa = torch.cat([msa[:, :1], msa[:, 1:].flip(1)], dim=1)
+    opt = make_optimizer()
+    state = init_train_state(build_model(init_state_dict(17, sizes["depth"]),
+                                         dev), opt)
+    step = make_train_step(opt, mesh=mesh, remat=True)
+    _sync(dev)
+    _peak_gib(dev, reset=True)
+    t0 = time.perf_counter()
+    state, loss = step(state, f2d, msa, labels, mask)
+    _sync(dev)
+    ms = 1e3 * (time.perf_counter() - t0)
+    grads = {k: p.grad.detach().clone()
+             for k, p in state.model.named_parameters()}
+    return loss.item(), grads, ms, _peak_gib(dev), state.model
+
+
+def train_trunk_rank(work: str, device: str, sizes: dict) -> dict:
+    """Phase 10, one of PARALLEL_RANKS gloo ranks on the one card, on the
+    (1, 2) mesh: one full-width train step with the rows split over mp
+    (rank 0 saves the gradients it applied), then phase 4's geometry
+    request at sizes["request_L"] with its trunk rows split (rank 0 saves
+    the maps and the logits), attention launches counted from 0 just
+    before it."""
+    import torch.distributed as dist
+    from trx2dy_torch.dynamics.driver import WEIGHT_FILES
+    from trx2dy_torch.models.convert import build_model, load_params
+    from trx2dy_torch.models.predictor2d_infer import (
+        predict_geometry, read_msa,
+    )
+    from trx2dy_torch.ops.triangle_attention import tri_attn_core
+    from scripts.ranks import digest
+    from trx2dy_torch.parallel.mesh import make_mesh
+
+    dev = _rank_device(device)
+    work = Path(work)
+    mesh = make_mesh(device_type=dev.type)
+    rank = dist.get_rank()
+    loss, grads, ms, peak, model = train_step_once(work, sizes, dev, mesh)
+    out = {"rank": rank, "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+           "loss": loss, "step_ms": ms, "peak_mem_gib": peak,
+           "params_digest": digest(list(model.parameters()))}
+    if rank == 0:
+        torch.save({k: g.cpu() for k, g in grads.items()},
+                   work / "parallel" / "grads.pt")
+    del model, grads
+
+    trunk = build_model(load_params(str(work / "models"
+                                        / WEIGHT_FILES["NMR"])), dev)
+    msa = read_msa(str(work / f"t{sizes['request_L']}.a3m"))
+    tri_attn_core.launches = 0
+    t0 = time.perf_counter()
+    maps = predict_geometry(trunk, msa, mesh=mesh)
+    out["trunk_wall_s"] = time.perf_counter() - t0
+    out["tri_attn_launches"] = tri_attn_core.launches
+    logits = trunk_logits(trunk, msa, mesh)
+    if rank == 0:
+        np.savez(work / "parallel" / "maps.npz", **maps)
+        torch.save(logits, work / "parallel" / "logits.pt")
+    return out
+
+
+def cut_fold(dev, label: str, L: int, B: int, fn, dense=False) -> tuple:
+    """run_fold_request of fn(stage_log): (the result, the request's
+    numbers with its median energy and stages)."""
+    log = []
+    res, req = run_fold_request(label, L, B, lambda: fn(log), dev, dense)
+    req["median_energy"] = float(res.energy.double().median())
+    req["stages"] = [(lab, it) for lab, it, _ in log]
+    print(f"fold {label}: median energy {req['median_energy']}, stages "
+          f"{req['stages']}", flush=True)
+    return res, req
+
+
+def fold_rank(work: str, device: str, sizes: dict) -> dict:
+    """Phase 10, one of PARALLEL_RANKS gloo ranks on the one card, on the
+    (2, 1) mesh: fold (a)'s target through fold_ensemble_sharded from the
+    generator fold (a) drew its starts from, without FastRelax at
+    sizes["iters"] a stage (pair launches counted from 0 just before it);
+    then the first centroid energies and gradients at the starts this rank
+    folded (its slice of the starts the fold returns), gathered into
+    global decoy order as the fold's results are; then the sharded
+    packing."""
+    import torch.distributed as dist
+    from trx2dy_torch.ops.spline_energy import spline_energy_pairs
+    from trx2dy_torch.parallel.decoys import (
+        fold_ensemble_sharded, pack_ensemble_sharded,
+    )
+    from trx2dy_torch.parallel.mesh import (
+        axis, gather, make_mesh, shard_batch,
+    )
+    from trx2dy_torch.physics.minimize import STATS
+
+    dev = _rank_device(device)
+    mesh = make_mesh(mp_size=1, device_type=dev.type)
+    L, B = sizes["L"], sizes["decoys"]
+    npz = synthetic_target(L, seed=1)
+    seq = synthetic_sequence(L, seed=1)
+    _sync(dev)
+    _peak_gib(dev, reset=True)
+    spline_energy_pairs.launches = 0
+    STATS.reset()
+    t0 = time.perf_counter()
+    res, starts = fold_ensemble_sharded(
+        mesh, npz, seq, torch.Generator().manual_seed(7), B, device=dev,
+        max_iter=sizes["iters"], fastrelax=False, return_starts=True)
+    _sync(dev)
+    out = {"rank": dist.get_rank(),
+           "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+           "wall_s": time.perf_counter() - t0, "energy_evals": STATS.evals,
+           "host_syncs": STATS.syncs,
+           "spline_pair_launches": spline_energy_pairs.launches,
+           "peak_mem_gib": _peak_gib(dev), "energy": res.energy.cpu(),
+           "starts": starts.cpu(),
+           "torsions_shape": tuple(res.torsions.shape)}
+    energy, _, _, _ = centroid_energy(npz, seq, dev)
+    e0, g0 = value_and_grad(energy, shard_batch(starts, mesh).reshape(
+        B // axis(mesh, "dp")[1], -1))
+    out["first"] = (gather(e0, mesh, "dp").cpu(),
+                    gather(g0, mesh, "dp").cpu())
+    t0 = time.perf_counter()
+    xyz, _, chi = pack_ensemble_sharded(mesh, res, seq, device=dev)
+    _sync(dev)
+    out["pack_s"] = time.perf_counter() - t0
+    out["pack_shape"] = tuple(xyz.shape)
+    out["pack_finite"] = bool(torch.isfinite(xyz).all()
+                              and torch.isfinite(chi).all())
+    return out
+
+
+def staged_cut_rank(work: str, device: str, sizes: dict) -> dict:
+    """Phase 10: the staged fold of fold (a)'s target and starts without
+    FastRelax at sizes["iters"] a stage, in a process of its own beside
+    the single program (its counts are this process's)."""
+    from trx2dy_torch.physics.folder import fold_ensemble
+    dev = _rank_device(device)
+    npz = synthetic_target(sizes["L"], seed=1)
+    seq = synthetic_sequence(sizes["L"], seed=1)
+    res, req = cut_fold(
+        dev, "a staged cut", sizes["L"], sizes["decoys"],
+        lambda log: fold_ensemble(
+            npz, seq, torch.Generator().manual_seed(7),
+            n_decoys=sizes["decoys"], max_iter=sizes["iters"],
+            fastrelax=False, device=dev, stage_log=log))
+    return {"req": req, "energy": res.energy.cpu()}
+
+
+def parallel_phase(dev, work: Path, fold_a: dict) -> dict:
+    """Phase 10: the one-process references (the train step, the request's
+    logits, each also with the rows reversed), then three spawned worlds
+    at once (train_trunk_rank and fold_rank, PARALLEL_RANKS gloo ranks
+    each on the card, and staged_cut_rank) while this process runs the
+    single-program fold; every rank held to one process, or to fold (a)'s
+    starts and the staged fold at the same settings."""
+    from concurrent.futures import ThreadPoolExecutor
+    from trx2dy_torch.dynamics.driver import WEIGHT_FILES
+    from trx2dy_torch.models.convert import build_model, load_params
+    from trx2dy_torch.models.predictor2d_infer import read_msa
+    from scripts.ranks import spawn_ranks
+    from trx2dy_torch.physics import folder
+    from trx2dy_torch.physics.restraints import masks_to, tables_to
+
+    t_phase = time.perf_counter()
+    (work / "parallel").mkdir(exist_ok=True)
+    sizes = {"depth": DEPTH, "msa_rows": TRAIN_MSA_ROWS,
+             "request_L": PARALLEL_REQUEST_L, "L": FOLD_L,
+             "decoys": FOLD_DECOYS, "iters": SINGLE_ITERS}
+    one = {}
+    for name in ("ref", "rows_reversed"):
+        loss, grads, ms, peak, model = train_step_once(
+            work, sizes, dev, reverse=name == "rows_reversed")
+        one[name] = (loss, grads, ms, peak)
+        del model
+    loss_ref, grads_ref, ms_ref, peak_ref = one["ref"]
+    trunk = build_model(load_params(str(work / "models"
+                                        / WEIGHT_FILES["NMR"])), dev)
+    msa = read_msa(str(work / f"t{PARALLEL_REQUEST_L}.a3m"))
+    logits_ref = trunk_logits(trunk, msa)
+    logits_rev = trunk_logits(trunk, msa, reverse=True)
+    logits_split = split_rows_logits(trunk, msa, PARALLEL_RANKS)
+    del trunk
+
+    npz = synthetic_target(FOLD_L, seed=1)
+    seq = synthetic_sequence(FOLD_L, seed=1)
+    _, rst, masks, w = centroid_energy(npz, seq, dev)
+    check_kernel_vs_plain("single-program energy a", folder._dense_energy(
+        tables_to(rst, dev), masks_to(masks, dev), w), fold_a["x0"])
+    with ThreadPoolExecutor(3) as pool:
+        worlds = [pool.submit(spawn_ranks, fn, n, str(work), str(dev), sizes,
+                              timeout=900.0)
+                  for fn, n in ((train_trunk_rank, PARALLEL_RANKS),
+                                (fold_rank, PARALLEL_RANKS),
+                                (staged_cut_rank, 1))]
+        res_single, req_single = cut_fold(
+            dev, "a single program", FOLD_L, FOLD_DECOYS,
+            lambda log: folder.fold_ensemble(
+                npz, seq, torch.Generator().manual_seed(7),
+                n_decoys=FOLD_DECOYS, max_iter=SINGLE_ITERS,
+                fastrelax=False, staged_execution=False, device=dev,
+                stage_log=log), dense=True)
+        train_ranks, fold_ranks, (staged,) = (w.result() for w in worlds)
+    check_fold("a single program", res_single.energy, fold_a["start"])
+    check_fold("a staged cut", staged["energy"], fold_a["start"])
+
+    def against_ref(loss, grads):
+        """(loss, per-tensor largest (ZERO_GRAD rule), all-gradient norm)
+        relative differences from one process."""
+        norm = (sum(float((grads[k].to(r.device) - r).square().sum())
+                    for k, r in grads_ref.items())
+                / sum(float(r.square().sum())
+                      for r in grads_ref.values())) ** 0.5
+        return (abs(loss - loss_ref) / abs(loss_ref),
+                grad_diff(grads, grads_ref), norm)
+
+    l_diff, g_diff, g_norm = against_ref(
+        train_ranks[0]["loss"], torch.load(work / "parallel" / "grads.pt"))
+    logits = torch.load(work / "parallel" / "logits.pt")
+    logit_rel, m_diff = logit_diff(logits, logits_ref)
+    split_diff = logit_diff(logits, logits_split)
+    with np.load(work / "parallel" / "maps.npz") as f:
+        # the entry (predict_geometry) against its own trunk's logits
+        m_entry = max(float(np.abs(f[k] - torch.softmax(
+            logits[k], -1).numpy()).max()) for k in f.files)
+    train = {"L": TRAIN_L, "msa_rows": TRAIN_MSA_ROWS, "depth": DEPTH,
+             "ranks": PARALLEL_RANKS, "step_ms_one_process": ms_ref,
+             "peak_mem_gib_one_process": peak_ref,
+             "loss_rel_diff": l_diff, "grad_rel_diff": g_diff,
+             "grad_norm_rel_diff": g_norm,
+             "rows_reversed": dict(zip(
+                 ("loss_rel_diff", "grad_rel_diff", "grad_norm_rel_diff"),
+                 against_ref(*one["rows_reversed"][:2]))),
+             "request_L": PARALLEL_REQUEST_L,
+             "trunk_logit_rel_diff": logit_rel, "trunk_map_diff": m_diff,
+             "trunk_entry_map_diff": m_entry,
+             "trunk_rows_reversed": dict(zip(
+                 ("logit_rel_diff", "map_diff"),
+                 logit_diff(logits_rev, logits_ref))),
+             "trunk_split_in_process": dict(zip(
+                 ("logit_rel_diff", "map_diff"),
+                 logit_diff(logits_split, logits_ref))),
+             "trunk_vs_split_in_process": dict(zip(
+                 ("logit_rel_diff", "map_diff"), split_diff)),
+             "per_rank": [{k: r[k] for k in (
+                 "rank", "mesh", "step_ms", "peak_mem_gib", "trunk_wall_s",
+                 "tri_attn_launches")} for r in train_ranks]}
+    print("parallel train " + json.dumps(train), flush=True)
+
+    # the sharded fold against fold (a)'s starts and the staged fold at
+    # the same settings
+    energy = fold_ranks[0]["energy"].double()
+    e0, g0 = fold_ranks[0]["first"]
+    starts_as_a = all(torch.equal(r["starts"].reshape(FOLD_DECOYS, -1),
+                                  fold_a["x0"].cpu()) for r in fold_ranks)
+    e_ref, g_ref = (t.cpu() for t in value_and_grad(
+        centroid_energy(npz, seq, dev)[0], fold_a["x0"]))
+    first = max(((e0 - e_ref).abs() / e_ref.abs()).max().item(),
+                ((g0 - g_ref).abs().max() / g_ref.abs().max()).item())
+    med = float(energy.median())
+    med_staged = staged["req"]["median_energy"]
+    fold = {"L": FOLD_L, "decoys": FOLD_DECOYS, "ranks": PARALLEL_RANKS,
+            "max_iter": SINGLE_ITERS, "starts_as_fold_a": starts_as_a,
+            "first_rel_diff": first,
+            "median_energy": med, "median_energy_staged": med_staged,
+            "median_rel_diff": abs(med - med_staged) / abs(med_staged),
+            "per_rank": [{k: r[k] for k in (
+                "rank", "mesh", "wall_s", "energy_evals", "host_syncs",
+                "spline_pair_launches", "peak_mem_gib", "pack_s")}
+                for r in fold_ranks]}
+    print("parallel fold " + json.dumps(fold), flush=True)
+    check(all(torch.equal(r["energy"], fold_ranks[0]["energy"])
+              and torch.equal(r["first"][0], e0) for r in fold_ranks),
+          "parallel fold: ranks' results differ")
+    check(starts_as_a, "parallel fold: the starts it folded, in global "
+          "order, are not fold (a)'s")
+    check(all(r["torsions_shape"] == (FOLD_DECOYS, 3, FOLD_L)
+              and r["pack_shape"][0] == FOLD_DECOYS and r["pack_finite"]
+              for r in fold_ranks), "parallel fold: result or packing shape")
+    check(all(r["energy_evals"] > 0 and
+              r["spline_pair_launches"] == r["energy_evals"]
+              for r in fold_ranks),
+          "parallel fold: pair launches per rank are not 1 per evaluation")
+    check_fold("a sharded", energy, fold_a["start"])
+    check(first <= FOLD_START_TOL,
+          f"parallel fold: first evaluations off by {first}")
+    check(fold["median_rel_diff"] <= FOLD_MEDIAN_TOL,
+          f"parallel fold: median {med} against the staged fold's "
+          f"{med_staged}")
+    check(l_diff <= SHARDED_TRAIN_TOL and g_norm <= SHARDED_TRAIN_TOL,
+          f"parallel train: loss {l_diff}, gradients {g_norm} from one "
+          "process")
+    check(len({(r["loss"], r["params_digest"]) for r in train_ranks}) == 1,
+          "parallel train: the ranks' losses or parameters differ")
+    check(all(r["tri_attn_launches"] == 2 * DEPTH for r in train_ranks),
+          "parallel trunk: attention launches per rank "
+          f"{[r['tri_attn_launches'] for r in train_ranks]}, expected "
+          f"{2 * DEPTH}")
+    check(split_diff[1] <= PLAIN_PATH_TOL,
+          f"parallel trunk: maps differ by {split_diff[1]} from the same "
+          "split run by threads of one process")
+    check(m_diff <= SPLIT_MAP_TOL and logit_rel <= PLAIN_LOGIT_TOL
+          and m_entry <= 1e-5,
+          f"parallel trunk: maps differ from one process by {m_diff}, "
+          f"logits by {logit_rel} (relative); predict_geometry's maps "
+          f"from its trunk's by {m_entry}")
+    wall = time.perf_counter() - t_phase
+    print(f"parallel phase: {wall:.1f} s", flush=True)
+    return {"train": train, "fold": fold,
+            "single": [req_single, staged["req"]], "wall_s": wall,
+            "tri_attn_launches": sum(r["tri_attn_launches"]
+                                     for r in train_ranks),
+            "spline_pair_launches": sum(r["spline_pair_launches"]
+                                        for r in fold_ranks)}
+
+
+def kernel_summary(kernel_rows, spline_rows, attn_paths: dict, folds,
+                   run_single=None, chain_fold=None,
+                   parallel=None) -> list:
+    """The `kernels` line: every kernel with its launches on the main path
+    (in all and by path), its error, its times and its bound. attn_paths:
+    the attention launches by path; folds: phase 5's requests and phase
+    10's one-process folds."""
     at_max = [r for r in kernel_rows if r["L"] == max(KERNEL_LENGTHS)]
     mean = lambda key: sum(r[key] for r in at_max) / len(at_max)
     kernels = [{
@@ -2456,7 +2986,8 @@ def kernel_summary(kernel_rows, spline_rows, launches: int, folds,
         "route": "cuda",
         "source": "trx2dy_torch/csrc/triangle_attention.cu",
         "replaces": "trx2dy/ops/triangle_attention.py:38",
-        "launches": launches,
+        "launches": sum(attn_paths.values()),
+        "launches_by_path": attn_paths,
         "max_abs_err": max(r["max_abs_err"] for r in kernel_rows),
         "ms": mean("kernel_ms"),
         "kernel_ms": mean("kernel_ms"),
@@ -2470,9 +3001,12 @@ def kernel_summary(kernel_rows, spline_rows, launches: int, folds,
         "shape": f"L={max(KERNEL_LENGTHS)}, H={HEADS}, D={HEAD_DIM}, f32; "
                  "launches: the geometry requests', the e2e predictor's "
                  f"bf16 and f32 runs ({E2E_LAUNCHES} each; its bf16 path "
-                 "upcasts q, k, v and the bias to this f32 kernel) and the "
+                 "upcasts q, k, v and the bias to this f32 kernel), the "
                  "trained checkpoint's request (training itself takes the "
-                 "logits path: the kernel has no backward); "
+                 "logits path: the kernel has no backward) and the "
+                 f"L={PARALLEL_REQUEST_L} request's trunk on "
+                 f"{PARALLEL_RANKS} ranks, its rows split "
+                 "(2 x depth a rank: the pair stack is replicated); "
                  "times are the mean of the row- and column-wise calls, "
                  "taken through the wrapper by CUDA events (one launch of "
                  "milliseconds, so kernel and wrapper time are one), "
@@ -2492,9 +3026,20 @@ def kernel_summary(kernel_rows, spline_rows, launches: int, folds,
               "library_ms": None,
               "library": "none: no single PyTorch call evaluates a masked "
                          "natural-cubic spline with its derivative"}
+    by_fold = lambda key: {f"fold {f['request']}": f[key] for f in folds
+                           if f[key]}
+    dense_paths = by_fold("spline_dense_launches")
+    pair_paths = by_fold("spline_pair_launches")
+    if parallel is not None:
+        pair_paths[f"fold a sharded over {PARALLEL_RANKS} ranks"] = \
+            parallel["spline_pair_launches"]
+    lanes_paths = {name: (r or {}).get("spline_lanes_launches", 0)
+                   for name, r in (("run_single", run_single),
+                                   ("chain fold", chain_fold))}
     kernels.append({
         "name": "spline_energy_dense", **common,
-        "launches": sum(f["spline_dense_launches"] for f in folds),
+        "launches": sum(dense_paths.values()),
+        "launches_by_path": dense_paths,
         "max_abs_err": max(r["max_abs_err"] for r in dense),
         "ms": total("kernel_ms"),
         "kernel_ms": total("kernel_ms"),
@@ -2508,7 +3053,8 @@ def kernel_summary(kernel_rows, spline_rows, launches: int, folds,
     })
     kernels.append({
         "name": "spline_energy_pairs", **common,
-        "launches": sum(f["spline_pair_launches"] for f in folds),
+        "launches": sum(pair_paths.values()),
+        "launches_by_path": pair_paths,
         "max_abs_err": pairs["max_abs_err"],
         "ms": pairs["kernel_ms"],
         "kernel_ms": pairs["kernel_ms"],
@@ -2524,8 +3070,8 @@ def kernel_summary(kernel_rows, spline_rows, launches: int, folds,
         "name": "spline_energy_lanes", **common,
         "replaces": "trx2dy/ops/spline_energy.py:27 (the sampler's "
                     "per-lane tables, trx2dy/physics/spline.py:289)",
-        "launches": sum((r or {}).get("spline_lanes_launches", 0)
-                        for r in (run_single, chain_fold)),
+        "launches": sum(lanes_paths.values()),
+        "launches_by_path": lanes_paths,
         "max_abs_err": max(r["max_abs_err"] for r in lanes_rows),
         "ms": lanes["kernel_ms"],
         "kernel_ms": lanes["kernel_ms"],
@@ -2601,8 +3147,8 @@ def main() -> int:
         requests, launches, outputs = main_path(dev, WORK)
         print(f"elapsed {time.perf_counter() - t0:.1f} s", flush=True)
         query = (WORK / f"t{CLI_L}.a3m").read_text().splitlines()[1]
-        folds, prof, atoms_a = fold_phase(dev, WORK, outputs[CLI_L]["NMR"],
-                                          query)
+        folds, prof, atoms_a, fold_a = fold_phase(
+            dev, WORK, outputs[CLI_L]["NMR"], query)
         print(f"elapsed {time.perf_counter() - t0:.1f} s", flush=True)
         with short_relax():
             run = run_single_phase(dev, WORK, WORK / f"t{CLI_L}.a3m",
@@ -2617,13 +3163,19 @@ def main() -> int:
         print(f"elapsed {time.perf_counter() - t0:.1f} s", flush=True)
         trained = train_phase(dev, WORK)
         print(f"elapsed {time.perf_counter() - t0:.1f} s", flush=True)
+        par = parallel_phase(dev, WORK, fold_a)
+        print(f"elapsed {time.perf_counter() - t0:.1f} s", flush=True)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
-    kernels = kernel_summary(kernel_rows, spline_rows,
-                             launches + e2e["tri_attn_launches"]
-                             + trained["tri_attn_launches"], folds, run,
-                             chain)
+    attn_paths = {"geometry requests": launches,
+                  "e2e requests": e2e["tri_attn_launches"],
+                  "trained checkpoint's request":
+                      trained["tri_attn_launches"],
+                  f"sharded trunk on {PARALLEL_RANKS} ranks":
+                      par["tri_attn_launches"]}
+    kernels = kernel_summary(kernel_rows, spline_rows, attn_paths,
+                             folds + par["single"], run, chain, par)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

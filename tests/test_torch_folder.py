@@ -20,6 +20,7 @@ from trx2dy.physics import minimize as jmin
 from trx2dy.physics import restraints as jrst
 from trx2dy_torch.cli import fold as tcli
 from trx2dy_torch.io import pdbio as tpdbio
+from trx2dy_torch.physics import cartmin as tcart
 from trx2dy_torch.physics import compact as tcompact
 from trx2dy_torch.physics import energy as tenergy
 from trx2dy_torch.physics import folder as tfolder
@@ -120,6 +121,9 @@ def test_lbfgs_run_matches_jax_fold_energy():
         return tenergy.batched_energy_weighted_compact(x, cr_t,
                                                        torch.from_numpy(w))
 
+    # jitted, so that JAX traces the energy once for the L-BFGS program
+    # (its value, line-search and gradient calls) instead of at each call
+    @jax.jit
     def fun_j(x):
         return jenergy.batched_energy_weighted_compact(x, cr_j,
                                                        jnp.asarray(w))
@@ -208,35 +212,46 @@ def test_stage_masks_match_jax():
                 assert np.array_equal(u, np.asarray(v))
 
 
-def test_fold_matches_jax_distributionally():
+FOLD_L, FOLD_B, FOLD_ITERS = 16, 4, 20
+
+
+@pytest.fixture(scope="module")
+def fold16():
+    """The target and starts of the whole-fold tests (L=16, 4 decoys), the
+    start's centroid energies, and JAX's staged fold of them (mode 2, no
+    relax, max_iter 20), traced once for the module."""
+    npz = _rand_npz(FOLD_L, key=5)
+    x0 = _x0(FOLD_B, FOLD_L, seed=7)
+    ref = jfolder.fold_ensemble(npz, SEQ16, jax.random.PRNGKey(0),
+                                n_decoys=FOLD_B, max_iter=FOLD_ITERS,
+                                fastrelax=False, x0=jnp.asarray(x0))
+    prst = trst.compile_restraints(npz)
+    cr = tcompact.compact_to(tcompact.compact_restraints(
+        prst, trst.restraint_masks(prst, SEQ16, 1, FOLD_L)), FOLD_L, "cpu")
+    with torch.no_grad():
+        start = tenergy.batched_energy_weighted_compact(
+            torch.from_numpy(x0.reshape(FOLD_B, -1)), cr,
+            torch.from_numpy(tenergy.weights_to_vec(tenergy.SCOREFXN_CENT)))
+    return npz, x0, start.numpy(), np.asarray(ref.energy)
+
+
+def test_fold_matches_jax_distributionally(fold16):
     """JAX's and the port's fold_ensemble from the same start torsions, at
     L=16, 4 decoys, mode 2, no relax, max_iter=20 (every stage of the
     protocol runs; 20 iterations keep the CPU time down): every final
     energy is below its start, and the medians agree within 10 % of
     |median| (the trajectories of the two frameworks diverge, so decoys
     do not pair)."""
-    L, B, ITERS = 16, 4, 20
-    npz = _rand_npz(L, key=5)
-    x0 = _x0(B, L, seed=7)
-    ref = jfolder.fold_ensemble(npz, SEQ16, jax.random.PRNGKey(0),
-                                n_decoys=B, max_iter=ITERS, fastrelax=False,
-                                x0=jnp.asarray(x0))
+    L, B, ITERS = FOLD_L, FOLD_B, FOLD_ITERS
+    npz, x0, start, e_ref = fold16
     log = []
     tmin.STATS.reset()
     port = tfolder.fold_ensemble(npz, SEQ16, None, n_decoys=B,
                                  max_iter=ITERS, fastrelax=False, x0=x0,
                                  device="cpu", stage_log=log)
-    e_ref = np.asarray(ref.energy)
     e = port.energy.numpy()
-    prst = trst.compile_restraints(npz)
-    cr = tcompact.compact_to(tcompact.compact_restraints(
-        prst, trst.restraint_masks(prst, SEQ16, 1, L)), L, "cpu")
-    with torch.no_grad():
-        start = tenergy.batched_energy_weighted_compact(
-            torch.from_numpy(x0.reshape(B, -1)), cr,
-            torch.from_numpy(tenergy.weights_to_vec(tenergy.SCOREFXN_CENT)))
-    assert np.isfinite(e).all() and (e < start.numpy()).all()
-    assert (e_ref < start.numpy()).all()
+    assert np.isfinite(e).all() and (e < start).all()
+    assert (e_ref < start).all()
     assert abs(np.median(e) - np.median(e_ref)) <= 0.1 * abs(np.median(e_ref))
     assert port.torsions.shape == (B, 3, L)
     ca = port.atoms["CA"].numpy()
@@ -252,8 +267,7 @@ def test_fold_refusals_and_padding(tmp_path):
     npz = _rand_npz(10, key=8)
     seq = SEQ16[:10]
     known = {"dist": np.full((1, 10, 10), 8.0, np.float32)}
-    for kwargs, err in (({"staged_execution": False}, NotImplementedError),
-                        ({"rst_mode": "af2"}, ValueError),   # --orient
+    for kwargs, err in (({"rst_mode": "af2"}, ValueError),   # --orient
                         ({"rst_mode": "gpcr"}, ValueError),  # no known_npz
                         ({"rst_mode": "xyz"}, ValueError),
                         ({"rst_mode": "gpcr", "known_npz": known,
@@ -264,13 +278,86 @@ def test_fold_refusals_and_padding(tmp_path):
     with pytest.raises(ValueError, match="does not match"):
         tfolder.fold_ensemble(npz, seq + "A", None, fastrelax=False,
                               device="cpu")
-    res = tfolder.fold_ensemble(npz, seq, torch.Generator().manual_seed(1),
-                                n_decoys=2, max_iter=10, fastrelax=False,
-                                pad_to=12, oversample=0.5, device="cpu")
-    assert res.torsions.shape == (2, 3, 10)
-    assert res.atoms["CA"].shape == (2, 10, 3)
-    assert np.isfinite(res.energy.numpy()).all()
-    assert np.all(np.diff(res.energy.numpy()) >= 0)   # lowest energies kept
+    for staged in (True, False):          # the single program too
+        res = tfolder.fold_ensemble(
+            npz, seq, torch.Generator().manual_seed(1), n_decoys=2,
+            max_iter=10 if staged else 3, fastrelax=False, pad_to=12,
+            oversample=0.5, staged_execution=staged, device="cpu")
+        assert res.torsions.shape == (2, 3, 10)
+        assert res.atoms["CA"].shape == (2, 10, 3)
+        assert np.isfinite(res.energy.numpy()).all()
+        assert np.all(np.diff(res.energy.numpy()) >= 0)   # lowest kept
+
+
+def test_single_program_fold_matches_jax(fold16):
+    """fold_ensemble(staged_execution=False) from the starts of
+    test_fold_matches_jax_distributionally, held to JAX's staged fold of
+    them (the module's fixture) by the rule tests/test_physics.py:470 ties
+    JAX's staged fold to its single program with (mean final energies
+    within 15 % of |mean|), both ways, and by this file's median rule
+    (10 %); every energy finite and below its start; the stages in JAX's
+    order, one L-BFGS run each. Its energy function (folder._dense_energy)
+    is held to JAX's pose_energy batch, value and gradient in float64, by
+    tests/test_torch_energy.py::test_batched_fused_matches_jax."""
+    npz, x0, start, e_ref = fold16
+    log = []
+    tmin.STATS.reset()
+    res = tfolder.fold_ensemble(npz, SEQ16, None, n_decoys=FOLD_B,
+                                max_iter=FOLD_ITERS, fastrelax=False, x0=x0,
+                                staged_execution=False, device="cpu",
+                                stage_log=log)
+    e = res.energy.numpy()
+    assert np.isfinite(e).all() and (e < start).all()
+    assert e.mean() <= e_ref.mean() + 0.15 * abs(e_ref.mean())
+    assert e_ref.mean() <= e.mean() + 0.15 * abs(e.mean())
+    assert abs(np.median(e) - np.median(e_ref)) <= 0.1 * abs(np.median(e_ref))
+    labels = [lab for lab, _, _ in log]
+    assert labels.count("cent") == 3 and labels.count("cart") == 1
+    assert labels[0] == "clash0" and labels[-1] == "clash"
+    assert all(0 < it <= FOLD_ITERS for lab, it, _ in log
+               if lab in ("cent", "cart"))
+    assert tmin.STATS.evals > 0
+
+
+def test_single_program_fastrelax_matches_staged(fold16, monkeypatch):
+    """The single program's FastRelax rounds (accept-to-best) and its
+    round-1 cartesian block on the dense tables, every relax and cartesian
+    stage cut to 3 iterations, one clash round: from two of the module's
+    starts at max_iter 5 it is held to the staged fold of the same starts
+    and settings (tests/test_torch_relax.py holds that one to JAX) by the
+    rule of tests/test_physics.py:470, both ways; energies finite and
+    below their starts, each relax round's stages logged per repeat, the
+    cartesian block's and the final refinement's stages run."""
+    for name in ("RELAX_SCHEDULE_R1", "RELAX_SCHEDULE_R2",
+                 "CART_SCHEDULE_R1"):
+        monkeypatch.setattr(tfolder, name, tuple(
+            (fa, cst, 3) for fa, cst, _ in getattr(tfolder, name)))
+    monkeypatch.setattr(tfolder, "CART_REFINE_ITERS", 3)
+    monkeypatch.setattr(tcart, "IDEALIZE_ITERS", 3)
+    monkeypatch.setattr(tfolder, "CLASH_ROUNDS", 1)
+    npz, x0, start, _ = fold16
+    energies, logs = {}, {}
+    for staged in (True, False):
+        logs[staged] = []
+        res = tfolder.fold_ensemble(npz, SEQ16, None, n_decoys=2,
+                                    max_iter=5, x0=x0[:2],
+                                    staged_execution=staged, device="cpu",
+                                    stage_log=logs[staged])
+        energies[staged] = res.energy.numpy()
+        assert np.isfinite(energies[staged]).all()
+        assert (energies[staged] < start[:2]).all()
+        assert np.isfinite(res.atoms["CA"].numpy()).all()
+    e, e_st = energies[False], energies[True]
+    assert e.mean() <= e_st.mean() + 0.15 * abs(e_st.mean())
+    assert e_st.mean() <= e.mean() + 0.15 * abs(e.mean())
+    labels = [lab for lab, _, _ in logs[False]]
+    n_stages = len(tfolder.RELAX_SCHEDULE_R1) * tfolder.RELAX_REPEATS
+    assert labels.count("relax1") == labels.count("relax2") == n_stages
+    assert labels.count("cart_r1") == len(tfolder.CART_SCHEDULE_R1)
+    assert labels.index("relax1") < labels.index("cart_r1") \
+        < labels.index("relax2") < labels.index("cart_refine")
+    assert all(0 < it <= 3 for lab, it, _ in logs[False]
+               if lab in ("relax1", "relax2", "cart_r1"))
 
 
 # ------------------------------------------------------------- PDB and CLI

@@ -1,6 +1,7 @@
 """Rules of the PyTorch port that no parity test shows.
 
-- Nothing in trx2dy_torch/ or chip_smoke.py imports jax or trx2dy.
+- Nothing in trx2dy_torch/, chip_smoke.py, scripts/dryrun_multichip.py or
+  scripts/ranks.py imports jax or trx2dy.
 - Entry points (the geometry stage, the fold, the chain fold, packing,
   run_single, the analysis layer, the e2e predictor and the CLIs) default
   to CUDA and raise where there is none, before writing anything, rather
@@ -32,12 +33,14 @@ from trx2dy_torch.dynamics.driver import (
     DynamicsConfig, geometry_stage, run_single,
 )
 from trx2dy_torch.models.predictor2d_infer import pred_2d_geometry
+from trx2dy_torch.parallel.decoys import fold_ensemble_sharded
 from trx2dy_torch.physics.folder import fold_chains, fold_ensemble
 from trx2dy_torch.physics.sidechain import pack_ensemble
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "trx2dy_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "scripts" / "dryrun_multichip.py",
+       ROOT / "scripts" / "ranks.py"]
 
 
 def _imported_roots(path: Path):
@@ -68,8 +71,13 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
 def test_fold_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     npz = {"dist": np.full((4, 4, 37), 1.0 / 37, np.float32)}
+    for staged in (True, False):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            fold_ensemble(npz, "AAAA", None, fastrelax=False,
+                          use_orient=False, staged_execution=staged)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        fold_ensemble(npz, "AAAA", None, fastrelax=False, use_orient=False)
+        fold_ensemble_sharded(None, npz, "AAAA", None, 2, fastrelax=False,
+                              use_orient=False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         fold_cli.main(["-NPZ", str(tmp_path / "missing.npz"), "-FASTA",
                        str(tmp_path / "missing.fasta"), "-OUT",

@@ -16,6 +16,7 @@ import jax
 import jax.numpy as jnp
 import optax
 import torch
+import torch.distributed as dist
 
 from trx2dy.models import train as jtrain
 from trx2dy.models.dataset import labels_from_structure as jax_labels
@@ -30,6 +31,7 @@ from trx2dy_torch.models.dataset import labels_from_structure
 from trx2dy_torch.models.predictor2d import (
     FF_DROPOUT, PAIR_DROPOUT, apply_dropout, draw_dropout, dropout_shapes,
 )
+from trx2dy_torch.parallel.mesh import make_mesh
 
 torch.set_num_threads(2)
 
@@ -319,9 +321,85 @@ def test_remat_with_dropout_equals_no_remat(data):
     assert train.step_seed(4, 0) != train.step_seed(4, 1)
 
 
-def test_make_train_step_with_mesh_raises():
-    with pytest.raises(NotImplementedError, match="sharding"):
-        train.make_train_step(train.make_optimizer(), mesh=object())
+@pytest.mark.parametrize("dropout, remat", [(False, False), (True, False),
+                                            (False, True), (True, True)],
+                         ids=["plain", "dropout", "remat", "dropout_remat"])
+def test_make_train_step_with_mesh_raises(data, dropout, remat):
+    """A mesh of more ranks than the process group raises; the (1, 1) mesh
+    of one process gives the step without a mesh, bit for bit, with and
+    without dropout and remat (the sharded step on four ranks:
+    tests/test_torch_parallel.py)."""
+    created = not dist.is_initialized()
+    try:
+        with pytest.raises(ValueError, match="2 ranks"):
+            make_mesh(world_size=2, device_type="cpu")
+        mesh = make_mesh(device_type="cpu")
+        params, f2d, msa, labels, mask = data
+        batch = (torch.from_numpy(f2d), torch.from_numpy(msa),
+                 {k: torch.from_numpy(v) for k, v in labels.items()},
+                 torch.from_numpy(mask))
+        out = []
+        for m in (None, mesh):
+            opt = train.make_optimizer()
+            state = train.init_train_state(build_model(params, "cpu"), opt)
+            state, loss = train.make_train_step(
+                opt, mesh=m, depth=DEPTH, dropout=dropout,
+                remat=remat)(state, *batch)
+            out.append((float(loss), [p.detach().clone()
+                                      for p in state.model.parameters()]))
+        assert out[0][0] == out[1][0]
+        assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
+    finally:
+        if created and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def test_row_parameters_are_the_msa_rows_modules(data):
+    """The parameters whose gradients the sharded step sums over mp: every
+    one of the modules that read MSA rows, and none of the pair path's
+    (attn_height's pair_norm and pair_linear bias its rows from the pair;
+    attn_width's are read by nothing)."""
+    model = build_model(data[0], "cpu")
+    rows = {id(p) for p in model.net.row_parameters()}
+    names = {k for k, p in model.named_parameters() if id(p) in rows}
+    per_block = {"1.norm", "1.fn.attn_width.to_q", "1.fn.attn_width.to_kv",
+                 "1.fn.attn_width.to_out", "1.fn.attn_height.to_q",
+                 "1.fn.attn_height.to_kv", "1.fn.attn_height.to_out",
+                 "2.proj_down1", "3", "4.norm2", "4.linear2", "4.norm3",
+                 "4.ff"}
+    want = {k for k, _ in model.named_parameters()
+            if k.startswith("net.token_emb.")
+            or any(k.startswith(f"net.net.blocks.{b}.{m}.")
+                   for b in range(DEPTH) for m in per_block)}
+    assert names == want
+    assert not any(".pair_" in k or f"blocks.{b}.0." in k
+                   for k in names for b in range(DEPTH))
+
+
+def test_reduce_gradients_fills_unread_parameters(data):
+    """On the one-process mesh the reduction changes no gradient and gives
+    every parameter the loss does not read a zero one, as optax sees it."""
+    created = not dist.is_initialized()
+    try:
+        mesh = make_mesh(device_type="cpu")
+        params, f2d, msa, labels, mask = data
+        model = build_model(params, "cpu")
+        train.batched_loss(model, torch.from_numpy(f2d),
+                           torch.from_numpy(msa),
+                           {k: torch.from_numpy(v) for k, v in labels.items()},
+                           torch.from_numpy(mask), depth=DEPTH).backward()
+        before = {k: None if p.grad is None else p.grad.clone()
+                  for k, p in model.named_parameters()}
+        assert any(g is None for g in before.values())
+        train.reduce_gradients(model, mesh)
+        for k, p in model.named_parameters():
+            if before[k] is None:
+                assert not p.grad.any(), k
+            else:
+                assert torch.equal(p.grad, before[k]), k
+    finally:
+        if created and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 # --------------------------------------------------------------------------

@@ -13,10 +13,11 @@ forward-only) and runs without dropout or remat.
         [--ckpt_every 200] [--resume ckpt_200.npz] [--seed 0] [--mesh] \\
         [--device cpu]
 
---data_dir holds <name>.a3m + <name>.pdb pairs. --mesh builds a (dp, mp)
-mesh over the visible devices in JAX and prints its shape, but JAX's step
-does not use it; on the port's one device it prints the (1, 1) shape and
-trains the same way (sharding is the next slice).
+--data_dir holds <name>.a3m + <name>.pdb pairs. --mesh builds the (dp,
+mp) mesh (parallel.mesh.make_mesh: over the ranks of a process group the
+caller made, the (1, 1) mesh in one process) and prints its shape; as in
+JAX, the CLI's step does not use it. Sharded training is
+models.train.make_train_step(mesh=...), one process a rank.
 """
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="npz checkpoint to resume from")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--mesh", action="store_true",
-                   help="print the (dp, mp) mesh shape; one device here")
+                   help="build the (dp, mp) mesh and print its shape")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                         "PyTorch path)")
@@ -87,7 +88,9 @@ def main(argv=None, timings: list = None):
     opt = make_optimizer(lr=args.lr)
     state = init_train_state(build_model(params, dev), opt)
     if args.mesh:
-        print(f"[trx2dy] mesh {dict(dp=1, mp=1)}")
+        from trx2dy_torch.parallel.mesh import make_mesh
+        mesh = make_mesh(device_type=dev.type)
+        print(f"[trx2dy] mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}")
     # JAX's CLI step: one sample, no dropout, no remat
     step = make_train_step(opt, depth=args.depth)
 

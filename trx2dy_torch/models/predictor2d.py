@@ -54,6 +54,18 @@ predictor2d_apply takes them:
   so the recompute applies the same ones: checkpointing restores the
   default RNG states, not an explicit generator's.
 
+MSA rows split over ranks (forward's `mp`, a process group; JAX's
+msa_sharding over the mesh's mp axis, trx2dy/models/train.py:100-104):
+each rank holds its R/mp rows of m, the pair x whole. Rows meet in three
+places, each through a collective of parallel/mesh.py: the column
+attention gathers its keys and values over mp (gather_rows), the tied-row
+attention sums q.k over mp before the pair bias and softmax (sum_over),
+and UpdateX sums its outer product over mp (sum_over), each divided or
+scaled by the global R. Where a pair tensor meets the rank's rows (the
+tied-row attention's weights, UpdateM's attention) it passes copy_to, so
+that its gradient sums every rank's rows. Everything else is row-local or
+computed alike on every rank. With mp None nothing changes.
+
 Works unbatched and channel-last: pair x is (L, L, D), MSA m is (R, L, D).
 """
 from __future__ import annotations
@@ -67,6 +79,9 @@ from torch.utils.checkpoint import checkpoint
 
 from trx2dy_torch.ops.triangle_attention import (
     tri_attn_core, tri_attn_core_plain,
+)
+from trx2dy_torch.parallel.mesh import (
+    copy_to, gather_rows, group_size, sum_over,
 )
 
 DIM = 128
@@ -341,25 +356,31 @@ class SelfAttention(nn.Module):
         shape = x.shape[:2] + (HEADS, DIM_HEAD)
         return self.to_q(x).reshape(shape), k.reshape(shape), v.reshape(shape)
 
-    def column(self, m):
-        """Attention along the row axis R of (R, L, D), batched over L."""
+    def column(self, m, mp=None):
+        """Attention along the row axis R of (R, L, D), batched over L; with
+        mp, this rank's rows query the keys and values of every rank's."""
         x = m.transpose(0, 1)                                # (L, R, D)
-        q, k, v = self._qkv(x)
+        shape = x.shape[:2] + (HEADS, DIM_HEAD)
+        q = self.to_q(x).reshape(shape)
+        kv = gather_rows(self.to_kv(x), mp, dim=1)
+        k, v = (t.reshape(x.shape[0], kv.shape[1], HEADS, DIM_HEAD)
+                for t in torch.chunk(kv, 2, dim=-1))
         dots = torch.einsum("bihd,bjhd->bhij", q, k) * DIM_HEAD ** -0.5
         out = torch.einsum("bhij,bjhd->bihd", torch.softmax(dots, dim=-1), v)
         out = self.to_out(out.reshape(x.shape[0], x.shape[1], -1))
         return out.transpose(0, 1)
 
-    def row_tied(self, m, pair):
-        """Tied-row attention with pair bias, shared across the R rows."""
-        R = m.shape[0]
+    def row_tied(self, m, pair, mp=None):
+        """Tied-row attention with pair bias, shared across the R rows
+        (over every rank's rows with mp)."""
+        R = m.shape[0] * group_size(mp)
         q, k, v = self._qkv(m)
         scale = DIM_HEAD ** -0.5 * R ** -0.5
-        dots = torch.einsum("rihd,rjhd->hij", q, k) * scale
+        dots = sum_over(torch.einsum("rihd,rjhd->hij", q, k), mp) * scale
         pb = self.pair_linear(self.pair_norm(pair))          # (L, L, H)
-        attn = torch.softmax(dots + pb.permute(2, 0, 1), dim=-1)
+        attn = copy_to(torch.softmax(dots + pb.permute(2, 0, 1), dim=-1), mp)
         out = torch.einsum("hij,rjhd->rihd", attn, v)
-        return self.to_out(out.reshape(R, m.shape[1], -1))
+        return self.to_out(out.reshape(m.shape[0], m.shape[1], -1))
 
 
 class MSAAttention(nn.Module):
@@ -368,9 +389,9 @@ class MSAAttention(nn.Module):
         self.attn_width = SelfAttention(d)
         self.attn_height = SelfAttention(d)
 
-    def forward(self, m, pair):
-        return (self.attn_width.column(m)
-                + self.attn_height.row_tied(m, pair)) / 2.0
+    def forward(self, m, pair, mp=None):
+        return (self.attn_width.column(m, mp)
+                + self.attn_height.row_tied(m, pair, mp)) / 2.0
 
 
 class PreNorm(nn.Module):
@@ -391,9 +412,10 @@ class UpdateX(nn.Module):
         self.proj_down1 = Linear(d, 32)
         self.proj_down2 = Linear(32 * 32, d)
 
-    def forward(self, x, m):
+    def forward(self, x, m, mp=None):
         mm = self.proj_down1(m)                              # (R, L, 32)
-        outer = torch.einsum("rid,rjc->ijcd", mm, mm) / mm.shape[0]
+        outer = sum_over(torch.einsum("rid,rjc->ijcd", mm, mm), mp) \
+            / (mm.shape[0] * group_size(mp))
         return x + self.proj_down2(outer.reshape(x.shape[0], x.shape[1], -1))
 
 
@@ -409,9 +431,10 @@ class UpdateM(nn.Module):
         self.linear2 = Linear(d, d // HEADS)
         self.ff = FeedForward(d)
 
-    def forward(self, x, m, drop: Optional[BlockDropout] = None):
+    def forward(self, x, m, drop: Optional[BlockDropout] = None, mp=None):
         pair = self.norm1((x + x.transpose(0, 1)) / 2.0)
-        attn = torch.softmax(self.linear1(pair), dim=-2)     # over j
+        # softmax over j
+        attn = copy_to(torch.softmax(self.linear1(pair), dim=-2), mp)
         values = self.linear2(self.norm2(m))                 # (R, L, d/h)
         out = m + torch.einsum("ijh,rjd->rihd", attn, values).reshape(m.shape)
         keep = None if drop is None else drop[4]
@@ -427,13 +450,13 @@ class TrunkBlock(nn.ModuleList):
                           UpdateX(d), PreNorm(FeedForward(d), d), UpdateM(d)])
 
     def forward(self, x, m, use_flash: bool = True,
-                drop: Optional[BlockDropout] = None):
+                drop: Optional[BlockDropout] = None, mp=None):
         tri, msa_attn, upd_x, ff, upd_m = self
-        m = m + msa_attn(m, x)
+        m = m + msa_attn(m, x, mp)
         m = m + ff(m)
-        x = upd_x(x, m)
+        x = upd_x(x, m, mp)
         x = tri(x, use_flash, drop)
-        return x, upd_m(x, m, drop)
+        return x, upd_m(x, m, drop, mp)
 
 
 class Trunk(nn.Module):
@@ -483,14 +506,17 @@ class Predictor2D(nn.Module):
                 return_repr: bool = False, depth: Optional[int] = None,
                 use_flash: bool = True,
                 dropout: Optional[List[BlockDropout]] = None,
-                remat: bool = False):
+                remat: bool = False, mp=None):
         """f2d (L, L, in_dim) features, msa (R, L) tokens already capped to
         the trunk's rows. e2e only: msa_emb (R, L, emb_dim) ESM
         representations; rec_reprs {'single': (L, d), 'pair': (L, L, d)}
         recycling embeddings; depth runs the first `depth` blocks.
         Training: use_flash=False (the differentiable logits attention),
         dropout (one BlockDropout per block run, from draw_dropout) and
-        remat (see the module's docstring). Returns LOGITS {dist (L,L,37),
+        remat (see the module's docstring). mp: the process group over
+        which the MSA rows are split; msa (and dropout's UpdateM masks)
+        then hold this rank's rows (see the module's docstring). Returns
+        LOGITS {dist (L,L,37),
         omega (L,L,25), theta (L,L,25), phi (L,L,13)}, the caller applies
         the softmax; with return_repr also {'pair': x, 'msa': m}."""
         x = self.conv1(F.elu(self.bn1(f2d)))                 # (L, L, d)
@@ -498,6 +524,9 @@ class Predictor2D(nn.Module):
         if msa_emb is not None:
             m = m + self.linear_emb(msa_emb)
         if rec_reprs is not None:
+            if mp is not None:
+                raise ValueError("the recycled single representation "
+                                 "feeds row 0; the e2e trunk runs unsplit")
             m[0] += rec_reprs["single"]          # m's dtype, as JAX
             x = x + rec_reprs["pair"]
         x = x + self.input_emb.relpos(
@@ -506,11 +535,11 @@ class Predictor2D(nn.Module):
             drop = None if dropout is None else dropout[i]
             if remat:
                 # no default-RNG draw inside a block: the masks come in
-                x, m = checkpoint(block, x, m, use_flash, drop,
+                x, m = checkpoint(block, x, m, use_flash, drop, mp,
                                   use_reentrant=False,
                                   preserve_rng_state=False)
             else:
-                x, m = block(x, m, use_flash, drop)
+                x, m = block(x, m, use_flash, drop, mp)
         sym = (x + x.transpose(0, 1)) * 0.5
         out = {
             "dist": self.to_dist_logits(sym),
@@ -521,6 +550,21 @@ class Predictor2D(nn.Module):
         if return_repr:
             return out, {"pair": x, "msa": m}
         return out
+
+    def row_parameters(self) -> List[nn.Parameter]:
+        """The parameters that act on MSA rows. With the rows split over mp
+        each rank's gradient of these holds only its rows' share, and the
+        sharded train step sums it over mp; every other parameter sits on
+        the pair path, whose gradient every rank holds whole."""
+        mods = [self.token_emb]
+        if hasattr(self, "linear_emb"):
+            mods.append(self.linear_emb)
+        for _, msa_attn, upd_x, ff, upd_m in self.net.blocks:
+            mods += [msa_attn.norm, ff, upd_x.proj_down1, upd_m.norm2,
+                     upd_m.linear2, upd_m.norm3, upd_m.ff]
+            for attn in (msa_attn.fn.attn_width, msa_attn.fn.attn_height):
+                mods += [attn.to_q, attn.to_kv, attn.to_out]
+        return [p for mod in mods for p in mod.parameters()]
 
 
 class DistPredictor(nn.Module):

@@ -17,6 +17,7 @@ from trx2dy_torch.device import resolve_device
 from trx2dy_torch.io.a3m import parse_a3m
 from trx2dy_torch.models.convert import build_model, load_params
 from trx2dy_torch.models.features import get_f2d
+from trx2dy_torch.parallel.mesh import axis, shard
 
 MSA_CUTOFF = 500      # trunk row cap (utils.py:635)
 PARSE_LIMIT = 20000   # a3m row cap (utils.py:733)
@@ -35,14 +36,17 @@ def read_msa(msa_file: str) -> np.ndarray:
 
 
 @torch.inference_mode()
-def predict_geometry(model: torch.nn.Module, msa: np.ndarray
-                     ) -> Dict[str, np.ndarray]:
+def predict_geometry(model: torch.nn.Module, msa: np.ndarray,
+                     mesh=None) -> Dict[str, np.ndarray]:
     """Softmaxed geometry histograms for an (R, L) token MSA, computed on
-    the device that holds `model`."""
+    the device that holds `model`. mesh: a (dp, mp) DeviceMesh
+    (parallel/mesh.py) whose mp axis splits the trunk's rows; every rank
+    passes the whole MSA and gets the whole histograms."""
     dev = next(model.parameters()).device
     tokens = torch.as_tensor(np.asarray(msa, dtype=np.int64), device=dev)
     f2d = get_f2d(tokens)
-    logits = model(f2d, tokens[:MSA_CUTOFF])
+    logits = model(f2d, shard(tokens[:MSA_CUTOFF], mesh, "mp"),
+                   mp=axis(mesh, "mp")[0])
     return {k: torch.softmax(v, dim=-1).cpu().numpy()
             for k, v in logits.items()}
 

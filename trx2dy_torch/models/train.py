@@ -15,8 +15,18 @@ PyTorch counterpart of trx2dy/models/train.py:
   * clip_by_global_norm then AdamW, with optax's semantics.
 
 A TrainState holds the model (whose parameters are JAX's `params`), the
-torch AdamW that holds the moments (JAX's `opt_state`) and the step. The
-step runs on one device; sharding (JAX's `mesh`) is the next slice.
+torch AdamW that holds the moments (JAX's `opt_state`) and the step.
+
+With a mesh (parallel/mesh.py make_mesh: one process a rank), the step
+takes the global batch on every rank, as JAX's sharded jit does: each
+rank runs its dp slice of the samples, each on its mp slice of the MSA
+rows (the trunk's `mp`), with the parameters and AdamW state replicated.
+After the backward pass, reduce_gradients sums the row parameters'
+gradients over mp (each rank holds its rows' share; the pair path's are
+whole on every rank and averaged) and averages every gradient over dp
+(the loss is a mean over samples); clipping and AdamW then see the same
+gradients on every rank, so the ranks take the same step, the one-device
+step on the whole batch.
 """
 from __future__ import annotations
 
@@ -24,9 +34,13 @@ from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from trx2dy_torch.models.predictor2d import draw_dropout
+from trx2dy_torch.parallel.mesh import (
+    all_reduce_, axis, replicated, shard, shard_batch, shard_msa,
+)
 
 HEAD_BINS = {"dist": 37, "omega": 25, "theta": 25, "phi": 13}
 
@@ -41,14 +55,15 @@ def geometry_loss(model, f2d: torch.Tensor, msa: torch.Tensor,
                   labels: Dict[str, torch.Tensor],
                   mask: Optional[torch.Tensor] = None,
                   depth: Optional[int] = None, dropout=None,
-                  remat: bool = False) -> torch.Tensor:
+                  remat: bool = False, mp=None) -> torch.Tensor:
     """Masked mean cross-entropy over the four heads for ONE sample.
 
     labels: dict of (L, L) int bin indices; mask: (L, L) bool of valid
     pairs. dropout: one BlockDropout per block (predictor2d.draw_dropout)
-    or None; remat rematerialises each trunk block."""
+    or None; remat rematerialises each trunk block; mp: the process group
+    over which msa's rows are split (msa then holds this rank's rows)."""
     logits = model(f2d, msa, depth=depth, use_flash=False, dropout=dropout,
-                   remat=remat)
+                   remat=remat, mp=mp)
     if mask is None:
         mask = torch.ones(f2d.shape[:2], dtype=torch.bool,
                           device=f2d.device)
@@ -63,22 +78,77 @@ def geometry_loss(model, f2d: torch.Tensor, msa: torch.Tensor,
 
 def batched_loss(model, f2d, msa, labels, mask, depth: Optional[int] = None,
                  generator: Optional[torch.Generator] = None,
-                 remat: bool = False) -> torch.Tensor:
+                 remat: bool = False, mesh=None) -> torch.Tensor:
     """Mean loss over the leading batch axis. The trunk is unbatched, so
     the samples run in turn; with a generator, each draws its masks from
-    it in sample order."""
+    it in sample order. With a mesh the inputs are the global batch: this
+    rank runs its dp slice of the samples on its mp slice of the rows and
+    returns the mean over its samples; masks are drawn for every sample
+    of the global batch and every row, and the rank keeps its own."""
     blocks = len(model.net.net.blocks[:depth])
     dim = model.net.token_emb.embedding_dim
+    mp, _, _ = axis(mesh, "mp")
+    # this rank's samples -> their rows
+    local = dict(zip(shard_batch(torch.arange(f2d.shape[0]), mesh).tolist(),
+                     shard_msa(msa, mesh)))
     per = []
     for b in range(f2d.shape[0]):
         drop = None
         if generator is not None:
             drop = draw_dropout(generator, blocks, f2d.shape[1],
                                 msa.shape[1], dim)
+        if b not in local:
+            continue
+        if drop is not None and mesh is not None:
+            drop = [blk[:4] + (shard(blk[4], mesh, "mp"),) for blk in drop]
         per.append(geometry_loss(
-            model, f2d[b], msa[b], {k: v[b] for k, v in labels.items()},
-            mask[b], depth=depth, dropout=drop, remat=remat))
+            model, f2d[b], local[b],
+            {k: v[b] for k, v in labels.items()}, mask[b], depth=depth,
+            dropout=drop, remat=remat, mp=mp))
     return torch.stack(per).mean()
+
+
+def value_and_grad(model, f2d, msa, labels, mask,
+                   depth: Optional[int] = None,
+                   generator: Optional[torch.Generator] = None,
+                   remat: bool = False, mesh=None) -> torch.Tensor:
+    """batched_loss, detached, with its gradients accumulated into the
+    parameters' .grad; with a mesh, the global batch's loss and gradients
+    on every rank (reduce_gradients, and the loss averaged over dp)."""
+    loss = batched_loss(model, f2d, msa, labels, mask, depth=depth,
+                        generator=generator, remat=remat, mesh=mesh)
+    loss.backward()
+    loss = loss.detach()
+    if mesh is not None:
+        reduce_gradients(model, mesh)
+        # the mp ranks of a dp index hold the same loss: the mean over
+        # every rank is the mean over dp, the same bits on every rank
+        all_reduce_([loss], None, scale=1.0 / dist.get_world_size())
+    return loss
+
+
+def reduce_gradients(model, mesh) -> None:
+    """The sharded step's gradients made the one-device step's: every
+    parameter the loss does not read gets a zero gradient, the row
+    parameters' (Predictor2D.row_parameters) are summed over mp and the
+    pair path's, whole on every mp rank, averaged over mp (on a GPU the
+    ranks' copies differ in their last bits, from kernels that sum with
+    atomics, and the ranks must take bit-identical steps), then all are
+    averaged over dp; in place."""
+    params = list(model.parameters())
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    rows = {id(p) for p in model.net.row_parameters()}
+    mp, n_mp, _ = axis(mesh, "mp")
+    dp, n_dp, _ = axis(mesh, "dp")
+    if n_mp > 1:
+        for p in params:
+            if id(p) not in rows:
+                p.grad.div_(n_mp)
+        all_reduce_([p.grad for p in params], mp)
+    if n_dp > 1:
+        all_reduce_([p.grad for p in params], dp, scale=1.0 / n_dp)
 
 
 class Optimizer(NamedTuple):
@@ -137,23 +207,23 @@ def make_train_step(optimizer: Optimizer, mesh=None,
 
     dropout=True enables the reference's structured training dropout, its
     generator seeded per step from (dropout_seed, state.step) on the
-    inputs' device; remat=True rematerialises each trunk block."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_train_step(mesh=...): sharding the step over a device mesh "
-            "(parallel/mesh.py, parallel/decoys.py) is the next slice of the "
-            "port; train on one device with mesh=None")
+    inputs' device; remat=True rematerialises each trunk block. mesh: a
+    (dp, mp) DeviceMesh (parallel/mesh.py); every rank passes the global
+    batch and gets the global loss (see the module's docstring). The
+    first step checks that the ranks hold the same parameters."""
 
     def step_fn(state: TrainState, f2d, msa, labels, mask):
+        if mesh is not None and state.step == 0:
+            replicated(list(state.model.parameters()))
         generator = None
         if dropout:
             generator = torch.Generator(device=f2d.device).manual_seed(
                 step_seed(dropout_seed, state.step))
         state.opt_state.zero_grad(set_to_none=True)
-        loss = batched_loss(state.model, f2d, msa, labels, mask, depth=depth,
-                            generator=generator, remat=remat)
-        loss.backward()
+        loss = value_and_grad(state.model, f2d, msa, labels, mask,
+                              depth=depth, generator=generator, remat=remat,
+                              mesh=mesh)
         optimizer.update(state.opt_state)
-        return state._replace(step=state.step + 1), loss.detach()
+        return state._replace(step=state.step + 1), loss
 
     return step_fn

@@ -311,25 +311,29 @@ def batched_energy_weighted_union(x, stage, w_vec, dist_on_ca: bool = False,
 batched_energy_weighted_lanes = batched_energy_weighted_union
 
 
-def pose_base_and_geometry(torsions, w_vec, dist_on_ca: bool = False):
+def pose_base_and_geometry(torsions, w_vec, dist_on_ca: bool = False,
+                           res_mask=None):
     """Non-restraint energy and the four dense query maps, over leading
     axes of torsions (..., 3, L)."""
     w = _weights(w_vec)
     atoms = build_backbone(torsions[..., 0, :], torsions[..., 1, :],
                            torsions[..., 2, :])
-    e = _base_energy(torsions, atoms, w, None)
+    e = _base_energy(torsions, atoms, w, res_mask)
     g = pairwise_geometry(atoms)
     dist = _ca_dist(atoms["CA"]) if dist_on_ca else g["dist"]
     return e, dist, g["omega"], g["theta"], g["phi"]
 
 
-def batched_energy_fused(x, rst, masks, w_vec,
-                         dist_on_ca: bool = False) -> torch.Tensor:
+def batched_energy_fused(x, rst, masks, w_vec, dist_on_ca: bool = False,
+                         res_mask=None) -> torch.Tensor:
     """(B, 3L) -> (B,) energies with shared dense tables, the restraint
-    terms through the spline kernel's dense entry (the JAX package's
-    batched_energy_fused). rst/masks as tensors (tables_to / masks_to)."""
+    terms through the spline kernel's dense entry, four launches (the JAX
+    package's batched_energy_fused; with res_mask, the dense pose_energy
+    batch of its single-program fold). rst/masks as tensors (tables_to /
+    masks_to)."""
     t = x.reshape(x.shape[0], 3, -1)
-    e, qd, qo, qt, qp = pose_base_and_geometry(t, w_vec, dist_on_ca)
+    e, qd, qo, qt, qp = pose_base_and_geometry(t, w_vec, dist_on_ca,
+                                               res_mask)
     w = _weights(w_vec)
     for wt, table, q, mask in ((w["atom_pair"], rst.dist, qd, masks.dist),
                                (w["dihedral"], rst.omega, qo, masks.omega),

@@ -36,9 +36,15 @@ lanes entry once each. fold_chains, the public chain fold, takes one npz
 dict per chain: it compiles each distinct dict's restraints on the host,
 as fold_ensemble does, and builds every protocol stage as the same union
 form (compact.compact_restraints_lanes), so its evaluations launch the
-lanes entry once each too. JAX's single-program driver
-(staged_execution=False, _protocol_jit) is a compile strategy of XLA; the
-port has one protocol driver.
+lanes entry once each too.
+
+fold_ensemble(staged_execution=False) runs JAX's single-program protocol
+(_protocol, folder.py:263-343): the same stages as one driver over dense
+shared tables, each stage one L-BFGS run of the whole batch, with no
+chunks and no lane repacking, the round-1 cartesian block on the dense
+cartesian energy. Every torsion-space evaluation is
+energy.batched_energy_fused, whose restraint terms launch the spline
+kernel's dense entry (the TPU kernel's own layout) four times.
 
 REPACK_IN_LOOP (off, as in JAX) switches fold_ensemble's relax round 2 to
 the in-loop repack stage (fa_stage, folder.py:684-713): each ramp stage
@@ -74,16 +80,18 @@ from trx2dy_torch.physics.compact import (
 )
 from trx2dy_torch.physics.energy import (
     SCOREFXN1, SCOREFXN_CART, SCOREFXN_CENT, SCOREFXN_VDW, EnergyWeights,
-    batched_energy_weighted_compact, batched_energy_weighted_union,
-    weights_to_vec,
+    batched_energy_fused, batched_energy_weighted_compact,
+    batched_energy_weighted_union, weights_to_vec,
 )
 from trx2dy_torch.physics.minimize import (
-    host_numpy, host_sync, lbfgs_init, lbfgs_run, state_gather,
+    host_numpy, host_sync, lbfgs_init, lbfgs_minimize, lbfgs_run,
+    state_gather,
 )
 from trx2dy_torch.physics.restraints import (
     FoldParams, RestraintMasks, RestraintSet, add_disulfide_restraints,
     compile_restraints, compile_restraints_af2, compile_restraints_gpcr,
-    compile_restraints_idp, disulfide_pairs, restraint_masks,
+    compile_restraints_idp, disulfide_pairs, masks_to, restraint_masks,
+    tables_to,
 )
 from trx2dy_torch.physics import sidechain
 
@@ -432,6 +440,97 @@ def _protocol_staged(x0, stages, max_iter: int, dist_on_ca: bool = False,
     return x, f
 
 
+def _dense_energy(rst, masks, w_vec, dist_on_ca: bool = False,
+                  res_mask=None):
+    """JAX's _batch_energy: (B, 3L) torsions -> (B,) energies over the
+    dense shared tables rst (restraints.tables_to) and masks (masks_to),
+    the weights w_vec a (9,) tensor on their device."""
+    def fun(xx):
+        return batched_energy_fused(xx, rst, masks, w_vec, dist_on_ca,
+                                    res_mask)
+    return fun
+
+
+def _protocol_single(x0, rst, stages, max_iter: int, dist_on_ca=False,
+                     res_mask=None, stage_log: Optional[list] = None,
+                     relax=None, cart_r1: bool = False):
+    """The protocol as JAX's single program runs it (_protocol): clash
+    removal, the centroid stages, with relax = (relax1, relax2) the two
+    FastRelax rounds (accept-to-best) with the round-1 cartesian block
+    between them when cart_r1, then the final centroid energy. rst: dense
+    tables (restraints.tables_to); stages, relax1, relax2: dense masks
+    (restraints.masks_to). Each stage is one lbfgs_minimize of the whole
+    batch; every evaluation is batched_energy_fused. Returns (x, final
+    centroid energies)."""
+    dev = x0.device
+    B = x0.shape[0]
+
+    def energy(w, masks):
+        return _dense_energy(rst, masks, torch.as_tensor(
+            weights_to_vec(w), device=dev), dist_on_ca, res_mask)
+
+    def score(w, masks, x):
+        # one counted value-and-gradient evaluation, every lane frozen
+        return lbfgs_init(energy(w, masks), x,
+                          freeze=torch.ones((B,), dtype=torch.bool,
+                                            device=dev)).f
+
+    def minimize(x, w, masks, iters, label, freeze=None):
+        t0 = time.perf_counter()
+        res = lbfgs_minimize(energy(w, masks), x, max_iter=iters,
+                             freeze=freeze)
+        if stage_log is not None:
+            stage_log.append((label, res.n_iter,
+                              round(time.perf_counter() - t0, 3)))
+        return res.x
+
+    empty = RestraintMasks(*(torch.zeros_like(m) for m in stages[0]))
+
+    def remove_clash(x, w, masks, iters, label):
+        # CLASH_ROUNDS rounds, the decoys whose vdw score reaches the
+        # cutoff minimising; a round with none left changes nothing
+        for _ in range(CLASH_ROUNDS):
+            active = score(SCOREFXN_VDW, empty, x) >= CLASH_SCORE_CUTOFF
+            if not host_numpy(active).any():
+                break
+            x = minimize(x, w, masks, iters, label, freeze=~active)
+        return x
+
+    x = remove_clash(x0, SCOREFXN_VDW, empty, 500, "clash0")
+    for masks in stages:
+        for _ in range(3):                      # RepeatMover(min_mover, 3)
+            x = minimize(x, SCOREFXN_CENT, masks, max_iter, "cent")
+        x = minimize(x, SCOREFXN_CART, masks, max_iter, "cart")
+        x = remove_clash(x, SCOREFXN1, masks, max_iter, "clash")
+
+    if relax is not None:
+        relax1, relax2 = relax
+
+        def relax_round(x, masks, schedule, label):
+            best_x, best_f = x, score(SCOREFXN_RELAX, masks, x)
+            for _ in range(RELAX_REPEATS):
+                for fa, cst, iters in schedule:
+                    x = minimize(x, _ramped_relax_weights(fa, cst), masks,
+                                 iters, label)
+                f = score(SCOREFXN_RELAX, masks, x)        # accept_to_best
+                best_x = torch.where((f < best_f)[:, None], x, best_x)
+                best_f = torch.minimum(f, best_f)
+            return best_x
+
+        x = relax_round(x, relax1, RELAX_SCHEDULE_R1, "relax1")
+        if cart_r1:
+            t = x.reshape(B, 3, -1)
+            with torch.no_grad():
+                atoms = build_backbone(t[:, 0], t[:, 1], t[:, 2])
+            atoms, _ = cartesian_relax_block(
+                atoms, (rst, relax1), _cart_r1_stages(),
+                weights_to_vec(SCOREFXN_RELAX), dist_on_ca=dist_on_ca,
+                res_mask=res_mask, stage_log=stage_log)
+            x = _project_torsions(x, atoms)
+        x = relax_round(x, relax2, RELAX_SCHEDULE_R2, "relax2")
+    return x, score(SCOREFXN_CENT, stages[-1], x)
+
+
 def fold_ensemble(npz: dict, seq: str,
                   generator: Optional[torch.Generator] = None,
                   n_decoys: int = 1, mode: int = 2, use_orient: bool = True,
@@ -454,12 +553,11 @@ def fold_ensemble(npz: dict, seq: str,
     ceil(n_decoys (1 + oversample)) decoys and keep the n_decoys of lowest
     energy; pad_to: pad to this length with inert residues; cart_refine:
     with fastrelax, the round-1 cartesian block and the final cartesian
-    refinement (no-idp and idp). Returns torsions, final centroid energies
-    and atoms, all on `device` (see FoldResult)."""
-    if not staged_execution:
-        raise NotImplementedError(
-            "staged_execution=False selects the JAX package's single-program "
-            "compile strategy; the PyTorch port has one protocol driver")
+    refinement (no-idp and idp); staged_execution=False: the
+    single-program protocol over dense tables (see the module's
+    docstring), where REPACK_IN_LOOP does not apply, as in JAX. Returns
+    torsions, final centroid energies and atoms, all on `device` (see
+    FoldResult)."""
     dev = resolve_device(device)
     L = len(seq)
     if np.asarray(npz["dist"]).shape[0] != L:
@@ -506,14 +604,13 @@ def fold_ensemble(npz: dict, seq: str,
     def device_pairs(masks):
         return compact_to(compact_restraints(rst, masks), L, dev)
 
-    stages = [device_pairs(m)
-              for m in _stage_masks_centroid(rst, seq, mode, pcut,
-                                             idr=npz.get("idr"))]
-    relax = None
+    stage_masks = _stage_masks_centroid(rst, seq, mode, pcut,
+                                        idr=npz.get("idr"))
+    relax_masks = None
     if fastrelax:
-        relax = tuple(device_pairs(restraint_masks(rst, seq, 1, L, pcut=pc,
-                                                   nogly=True))
-                      for pc in (0.15, 0.30))
+        relax_masks = tuple(restraint_masks(rst, seq, 1, L, pcut=pc,
+                                            nogly=True)
+                            for pc in (0.15, 0.30))
     cart = cart_refine and fastrelax and rst_mode in ("no-idp", "idp")
 
     n_fold = n_decoys
@@ -525,15 +622,29 @@ def fold_ensemble(npz: dict, seq: str,
                          dtype=torch.float32).to(dev)
     x0 = x0.reshape(x0.shape[0], 3 * L)
 
-    pack = None
-    if REPACK_IN_LOOP and fastrelax:
-        # no disulfide pairs in the loop: the CB-CB wells already restrain
-        # CYS pairs through every stage
-        pack = (sidechain.pack_input(seq, dev),
-                torch.zeros((0, 2), dtype=torch.int64, device=dev))
-    x, f = _protocol_staged(x0, stages, max_iter, dist_on_ca=dist_on_ca,
-                            res_mask=res_mask, stage_log=stage_log,
-                            relax=relax, cart_r1=cart, pack=pack)
+    if staged_execution:
+        pack = None
+        if REPACK_IN_LOOP and fastrelax:
+            # no disulfide pairs in the loop: the CB-CB wells already
+            # restrain CYS pairs through every stage
+            pack = (sidechain.pack_input(seq, dev),
+                    torch.zeros((0, 2), dtype=torch.int64, device=dev))
+        relax = None if relax_masks is None else \
+            tuple(device_pairs(m) for m in relax_masks)
+        refine_pairs = relax[1] if cart else None
+        x, f = _protocol_staged(x0, [device_pairs(m) for m in stage_masks],
+                                max_iter, dist_on_ca=dist_on_ca,
+                                res_mask=res_mask, stage_log=stage_log,
+                                relax=relax, cart_r1=cart, pack=pack)
+    else:
+        relax = None if relax_masks is None else \
+            tuple(masks_to(m, dev) for m in relax_masks)
+        refine_pairs = device_pairs(relax_masks[1]) if cart else None
+        x, f = _protocol_single(x0, tables_to(rst, dev),
+                                [masks_to(m, dev) for m in stage_masks],
+                                max_iter, dist_on_ca=dist_on_ca,
+                                res_mask=res_mask, stage_log=stage_log,
+                                relax=relax, cart_r1=cart)
     if n_fold > n_decoys:
         keep = torch.argsort(f)[:n_decoys]
         x, f = x[keep], f[keep]
@@ -545,8 +656,9 @@ def fold_ensemble(npz: dict, seq: str,
         # the reference's cartesian channel (folding.py:169,234) on the
         # kept lanes, against the pcut 0.30 tables of relax round 2
         atoms, _ = cartesian_refine_compact(
-            atoms, relax[1], SCOREFXN_RELAX, max_iter=CART_REFINE_ITERS,
-            res_mask=res_mask, stage_log=stage_log)
+            atoms, refine_pairs, SCOREFXN_RELAX,
+            max_iter=CART_REFINE_ITERS, res_mask=res_mask,
+            stage_log=stage_log)
     if L_true < L:
         atoms = {k: v[:, :L_true] for k, v in atoms.items()}
     return FoldResult(torsions=t[:, :, :L_true], energy=f, atoms=atoms)
