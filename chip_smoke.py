@@ -15,8 +15,9 @@ Phases; any failure exits non-zero and no phase is skipped:
      float64 computation; kernel, plain and library times beside the bound
      the card's data sheet gives. Triangle attention row- and column-wise
      (held to TRI_ATTN_TOL, with the bias as the trunk lays it out and as
-     an (L, L, H) array); the spline restraint energy's dense entry at
-     (B, L) = (50, 150) and (3, 37), its fused pair entry, all four knot
+     an (L, L, H) array); the spline restraint energy's dense entry, all
+     four knot grids in one launch, at (B, L) = (50, 150) and (3, 37),
+     bit-identical on a repeat, its fused pair entry, all four knot
      grids in one launch, at the bucketed pair counts of a full L=150 mask
      with B=50, and its lanes entry (tables from the sampler's table
      compiler, stored once per used pool row behind a lane -> row map) at
@@ -159,7 +160,7 @@ Phases; any failure exits non-zero and no phase is skipped:
      (a)'s, the ranks' results identical, its median
      within FOLD_MEDIAN_TOL of the staged fold's, one pair launch per
      evaluation per rank; the single program's first energy and gradient
-     against the plain dense path (FOLD_START_TOL), 4 dense launches per
+     against the plain dense path (FOLD_START_TOL), 1 dense launch per
      evaluation; every energy below its start. Reported beside the
      rounding baseline (the rows reversed): the per-tensor gradient and map
      differences; step ms and peak memory per rank; the single program's
@@ -252,15 +253,17 @@ CLUSTERS = 4               # --n_clusters of the cluster CLI
 # cartesian refinement; max_iter, the centroid stages' budget, is the one
 # depth cut: 300 took 85.5 s on a host where fold (a) took 159 s, 150 took
 # 108 s on one where it took 244 s (the chip hosts differ by up to 2x,
-# PERF.md), so 75 makes room for phase 10
-CHAIN_NPZ_CHAINS, CHAIN_CANDIDATES, CHAIN_FOLD_ITERS = 4, 2, 75
+# PERF.md), so 75 made room for phase 10; 75 took 76 s on a host where
+# fold (a) took 269 s and the whole script 1229 s, so 40
+CHAIN_NPZ_CHAINS, CHAIN_CANDIDATES, CHAIN_FOLD_ITERS = 4, 2, 40
 # the depth cut that makes room for phase 9: (b'), its repack fold,
 # run_single (phase 6) and the chain fold (phase 7) run each relax and
 # round-1 cartesian stage for at most RELAX_STAGE_ITERS L-BFGS iterations
 # and the final cartesian refinement for at most CART_REFINE_CUT (every
 # stage still runs, in order); fold (a) keeps every default. Uncut, the
-# smoke took 864 s on a fast host and 1221 s on a slow one (PERF.md)
-RELAX_STAGE_ITERS, CART_REFINE_CUT = 10, 50
+# smoke took 864 s on a fast host and 1221 s on a slow one; at 10 and 50
+# it took 1229 s on a host where fold (a) took 269 s (PERF.md)
+RELAX_STAGE_ITERS, CART_REFINE_CUT = 5, 25
 # phase 8, the e2e predictor at full width: ESM-MSA-1b at 12 x 768 x 12
 # heads, Folding at dim 128, depth 12, 8 structure-module blocks, 12 IPA
 # heads, on a synthetic a3m of E2E_ROWS rows at L = E2E_L filtered to
@@ -310,7 +313,8 @@ PLAIN_LOGIT_TOL = 1e-3
 # on an H100 (PERF.md); the request by its logits (PLAIN_LOGIT_TOL), its
 # maps reported. Fold (a)'s target and starts, without FastRelax at
 # SINGLE_ITERS L-BFGS iterations a stage (the depth cut: phase 10 took
-# 279 s at fold (a)'s full settings on a slow host), sharded over dp=2,
+# 279 s at fold (a)'s full settings on a slow host, 74.5 s at 30
+# iterations on a host where fold (a) took 269 s), sharded over dp=2,
 # held to fold (a)'s first evaluations and to the staged fold at the same
 # settings; the same fold through the single program
 # (staged_execution=False) beside that staged fold
@@ -323,7 +327,7 @@ SHARDED_TRAIN_TOL = 1e-4
 # rounding. The gloo ranks are held to that split within PLAIN_PATH_TOL,
 # and to one process within about twice the readings
 SPLIT_MAP_TOL = 1e-2
-SINGLE_ITERS = 30
+SINGLE_ITERS = 15
 
 # Data-sheet peaks: float32 outside the tensor cores, memory rate, dense
 # TF32 on the tensor cores.
@@ -529,9 +533,8 @@ def spline_bound_ms(n_active: int, B: int, K: int, n_mask: int,
 def spline_times(wrapper, plain, kernel: str) -> dict:
     """kernel_ms: the kernel's own device time (torch.profiler); wrapper_ms:
     one wrapper call back to back on the stream (CUDA events), which is
-    what the fold pays per call (checks, allocation, launch, and for the
-    dense entry the partial sum); plain_ms: the plain version, the same
-    way."""
+    what the fold pays per call (checks, allocation, launch); plain_ms:
+    the plain version, the same way."""
     wrapper_ms = time_ms(wrapper)
     kernel_ms = kernel_device_ms(wrapper, kernel)
     return {"kernel_ms": wrapper_ms if kernel_ms is None else kernel_ms,
@@ -541,11 +544,12 @@ def spline_times(wrapper, plain, kernel: str) -> dict:
 
 
 def spline_kernel_phase(dev, peaks):
-    """Both entries of the spline kernel against a float64 plain version,
-    on tables fitted by the port's compile_restraints."""
+    """The spline kernel's entries against a float64 plain version, on
+    tables fitted by the port's compile_restraints."""
     from trx2dy_torch.ops.spline_energy import (
-        SplinePairs, _dense_fwd, _pairs_fwd, spline_dense_plain,
-        spline_energy_dense, spline_energy_pairs, spline_pairs_plain,
+        SplineDense, SplinePairs, _dense_fwd, _pairs_fwd,
+        spline_dense_terms_plain, spline_energy_dense, spline_energy_pairs,
+        spline_pairs_plain,
     )
     from trx2dy_torch.physics.compact import _compact_term
     from trx2dy_torch.physics.restraints import compile_restraints, \
@@ -569,39 +573,58 @@ def spline_kernel_phase(dev, peaks):
               f"{name}: deriv off by {deriv_err} x max(1, |ref|)")
         return sum_err, deriv_err, d_abs.max().item()
 
+    # dense entry: the four grids' shared (L, L) tables and a stage's
+    # masks, one launch, as one evaluation of the single-program fold
     rows = []
     for (B, L) in SPLINE_SHAPES:
         rst = compile_restraints(random_histograms(L, seed=L))
         masks = restraint_masks(rst, "A" * L, 1, L)
+        terms, qs, active = [], [], []
         for grid in GRIDS:
             tab, mask = getattr(rst, grid), getattr(masks, grid)
             K = tab.x.shape[0]
-            y, m, x = on(tab.y), on(tab.m), on(tab.x)
-            q = on(edge_queries(tab.x, (B, L, L), seed=K + L))
-            mk = on(mask)
-            before = spline_energy_dense.launches
-            sums, deriv = _dense_fwd(y, m, x, q, mk)   # the wrapper's forward
-            torch.cuda.synchronize()
-            check(spline_energy_dense.launches == before + 1,
-                  f"spline dense {grid}: launch counter did not advance")
-            ref_sums, ref_deriv = spline_dense_plain(
-                y.double(), m.double(), x.double(), q.double(), mk)
-            val, _ = evaluate_spline_with_deriv(
-                SplineTable(x.double(), y.double(), m.double()), q.double())
+            terms.append((on(tab.y), on(tab.m), on(tab.x), on(mask)))
+            qs.append(on(edge_queries(tab.x, (B, L, L), seed=K + L)))
+            active.append(int(mask.sum()))
+        tables = SplineDense(terms)
+        before = spline_energy_dense.launches
+        sums, derivs = _dense_fwd(tables, qs)     # the wrapper's forward
+        torch.cuda.synchronize()
+        check(spline_energy_dense.launches == before + 1,
+              f"spline dense L={L}: launch counter did not advance by 1")
+        terms64 = [(y.double(), m.double(), x.double(), mk)
+                   for y, m, x, mk in terms]
+        ref_sums, ref_derivs = spline_dense_terms_plain(
+            terms64, [q.double() for q in qs])
+        row = {"entry": "dense", "grids": list(GRIDS), "B": B, "L": L,
+               "K": [t[2].shape[0] for t in terms], "active": active,
+               "sum_rel_err": [], "deriv_err": [], "max_abs_err": 0.0}
+        for n, grid in enumerate(GRIDS):
+            y, m, x, mk = terms64[n]
+            val, _ = evaluate_spline_with_deriv(SplineTable(x, y, m),
+                                                qs[n].double())
             abs_sums = torch.where(mk, val.abs(), 0.0).sum(dim=(1, 2))
-            errs = compare(f"spline dense {grid} B={B} L={L}", sums, deriv,
-                           ref_sums, ref_deriv, abs_sums)
-            row = {"entry": "dense", "grid": grid, "B": B, "L": L, "K": K,
-                   "sum_rel_err": errs[0], "deriv_err": errs[1],
-                   "max_abs_err": errs[2]}
-            row.update(spline_times(
-                lambda: _dense_fwd(y, m, x, q, mk),
-                lambda: spline_dense_plain(y, m, x, q, mk),
-                "spline_dense_kernel"))
-            row["bound_ms"], row["bound_by"] = spline_bound_ms(
-                int(mask.sum()), B, K, L * L, B * L * L, peaks)
-            print("spline " + json.dumps(row), flush=True)
-            rows.append(row)
+            errs = compare(f"spline dense {grid} B={B} L={L}", sums[n],
+                           derivs[n], ref_sums[n], ref_derivs[n], abs_sums)
+            row["sum_rel_err"].append(errs[0])
+            row["deriv_err"].append(errs[1])
+            row["max_abs_err"] = max(row["max_abs_err"], errs[2])
+        # bit-identical on a repeat: the in-kernel sum has a fixed order
+        sums2, derivs2 = _dense_fwd(tables, qs)
+        check(torch.equal(sums, sums2) and all(
+            torch.equal(a, b) for a, b in zip(derivs, derivs2)),
+            f"spline dense L={L}: a repeated launch is not bit-identical")
+        row.update(spline_times(
+            lambda: _dense_fwd(tables, qs),
+            lambda: spline_dense_terms_plain(terms, qs),
+            "spline_dense_kernel"))
+        bounds = [spline_bound_ms(n_act, B, t[2].shape[0], L * L, B * L * L,
+                                  peaks) for n_act, t in zip(active, terms)]
+        row["bound_ms"] = sum(b for b, _ in bounds)
+        row["bound_by"] = "bytes" if all(by == "bytes" for _, by in bounds) \
+            else "operations"
+        print("spline " + json.dumps(row), flush=True)
+        rows.append(row)
 
     # fused pair entry: the bucketed pair lists of a full L=150 mask, B=50,
     # all four grids in one launch, as one energy evaluation of the fold
@@ -1019,11 +1042,13 @@ def plain_splines():
             out.append(masked_spline_energy_lanes(
                 y.transpose(0, 1), m.transpose(0, 1), x, q.T, act.T))
         return torch.stack(out)
+    def plain_dense(tables, qs):
+        return spline_ops.spline_dense_terms_plain(tables.terms, qs)
     kernels = (compact.spline_energy_pairs, compact.spline_energy_lanes,
                spline_ops._dense_fwd)
     compact.spline_energy_pairs = plain
     compact.spline_energy_lanes = plain_lanes
-    spline_ops._dense_fwd = spline_ops.spline_dense_plain
+    spline_ops._dense_fwd = plain_dense
     try:
         yield
     finally:
@@ -1055,7 +1080,7 @@ def run_fold_request(label: str, L: int, B: int, fn, dev,
     """Drive fn() with every launch counter at 0 just before and read just
     after; prints and returns (fn's result, the request's numbers). Each
     spline-counted evaluation launches the pair entry once, or with
-    dense (the single-program fold) the dense entry four times."""
+    dense (the single-program fold) the dense entry once."""
     from trx2dy_torch.ops.spline_energy import (
         spline_energy_dense, spline_energy_pairs,
     )
@@ -1077,11 +1102,11 @@ def run_fold_request(label: str, L: int, B: int, fn, dev,
            "spline_pair_launches": spline_energy_pairs.launches,
            "spline_dense_launches": spline_energy_dense.launches}
     print("fold " + json.dumps(req), flush=True)
-    launched, per_eval = (spline_energy_dense.launches, 4) if dense else \
-        (spline_energy_pairs.launches, 1)
-    check(STATS.evals > 0 and launched == per_eval * STATS.evals,
+    launched = spline_energy_dense.launches if dense else \
+        spline_energy_pairs.launches
+    check(STATS.evals > 0 and launched == STATS.evals,
           f"fold {label}: {launched} spline launches for {STATS.evals} "
-          f"energy evaluations, expected {per_eval} per evaluation")
+          "energy evaluations, expected 1 per evaluation")
     return out, req
 
 
@@ -1330,8 +1355,8 @@ def fold_phase(dev, work: Path, npz_b: str, seq_b: str):
     labels = {lab for lab, _, _ in log_a}
     check({"cent", "relax1", "cart_r1", "relax2", "cart_refine",
            "idealize"} <= labels, f"fold a: stages missing: {labels}")
-    check(req_a["spline_dense_launches"] == 4,
-          "fold a: the dense rescoring did not launch 4 times")
+    check(req_a["spline_dense_launches"] == 1,
+          "fold a: the dense rescoring did not launch once")
     rescore = ((fused_a.double() - res_a.energy.double()).abs()
                / res_a.energy.double().abs()).max().item()
     print(f"fold a: dense-entry rescoring differs by {rescore} (relative)",
@@ -2818,7 +2843,8 @@ def parallel_phase(dev, work: Path, fold_a: dict) -> dict:
     from trx2dy_torch.models.predictor2d_infer import read_msa
     from scripts.ranks import spawn_ranks
     from trx2dy_torch.physics import folder
-    from trx2dy_torch.physics.restraints import masks_to, tables_to
+    from trx2dy_torch.physics.restraints import dense_splines, masks_to, \
+        tables_to
 
     t_phase = time.perf_counter()
     (work / "parallel").mkdir(exist_ok=True)
@@ -2844,7 +2870,8 @@ def parallel_phase(dev, work: Path, fold_a: dict) -> dict:
     seq = synthetic_sequence(FOLD_L, seed=1)
     _, rst, masks, w = centroid_energy(npz, seq, dev)
     check_kernel_vs_plain("single-program energy a", folder._dense_energy(
-        tables_to(rst, dev), masks_to(masks, dev), w), fold_a["x0"])
+        dense_splines(tables_to(rst, dev), masks_to(masks, dev)), w),
+        fold_a["x0"])
     with ThreadPoolExecutor(3) as pool:
         worlds = [pool.submit(spawn_ranks, fn, n, str(work), str(dev), sizes,
                               timeout=900.0)
@@ -3015,9 +3042,8 @@ def kernel_summary(kernel_rows, spline_rows, attn_paths: dict, folds,
                  "f32 rate, bound_ms_3xtf32 the kernel's 3 TF32 products",
     }]
     B, L = SPLINE_SHAPES[0]
-    dense = [r for r in spline_rows if r["entry"] == "dense"]
-    main_dense = [r for r in dense if r["B"] == B and r["L"] == L]
-    total = lambda k: sum(r[k] for r in main_dense)
+    dense_rows = [r for r in spline_rows if r["entry"] == "dense"]
+    dense = next(r for r in dense_rows if r["B"] == B and r["L"] == L)
     pairs = next(r for r in spline_rows if r["entry"] == "pairs")
     lanes_rows = [r for r in spline_rows if r["entry"] == "lanes"]
     lanes = next(r for r in lanes_rows if r["L"] == L and r["map"] == "chain")
@@ -3040,16 +3066,16 @@ def kernel_summary(kernel_rows, spline_rows, attn_paths: dict, folds,
         "name": "spline_energy_dense", **common,
         "launches": sum(dense_paths.values()),
         "launches_by_path": dense_paths,
-        "max_abs_err": max(r["max_abs_err"] for r in dense),
-        "ms": total("kernel_ms"),
-        "kernel_ms": total("kernel_ms"),
-        "wrapper_ms": total("wrapper_ms"),
-        "plain_ms": total("plain_ms"),
-        "bound_ms": total("bound_ms"),
-        "bound_by": "bytes" if all(r["bound_by"] == "bytes"
-                                   for r in main_dense) else "operations",
-        "shape": f"B={B}, L={L}, f32; times and bound are the sum of one "
-                 "call per knot grid (dist, omega, theta, phi)",
+        "max_abs_err": max(r["max_abs_err"] for r in dense_rows),
+        "ms": dense["kernel_ms"],
+        "kernel_ms": dense["kernel_ms"],
+        "wrapper_ms": dense["wrapper_ms"],
+        "plain_ms": dense["plain_ms"],
+        "bound_ms": dense["bound_ms"],
+        "bound_by": dense["bound_by"],
+        "shape": f"B={B}, L={L}, f32; one launch for the four knot grids "
+                 "(dist, omega, theta, phi: one evaluation of the "
+                 "single-program fold)",
     })
     kernels.append({
         "name": "spline_energy_pairs", **common,

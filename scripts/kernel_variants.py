@@ -9,15 +9,19 @@ float64 plain version and its time at the main path's shapes (triangle
 attention at L=400 with the trunk's head-major bias, mean of the row- and
 column-wise call; the fused spline pair entry at the L=150, B=50 fold's
 pair lists, kernel time by torch.profiler and wrapper time by CUDA
-events; the spline lanes entry at chip_smoke.py's three lane maps and
+events; the spline dense entry's four terms at chip_smoke.py's
+(B, L) = (50, 150) and (3, 37), kernel time warm and L2-flushed and
+wrapper time, beside the entry's earlier design (one launch and one
+PyTorch sum of its partials per term, its wrapper's per-call checks);
+the spline lanes entry at chip_smoke.py's three lane maps and
 both lengths, L=150 and 64, C=32, kernel time by torch.profiler warm and
 after a 256 MB write that flushes the L2 before every launch, as a fold
 finds it after the ~600 small launches between two evaluations).
 Variants are timed in turns, shipped first and last.
 
-    python3 scripts/kernel_variants.py [tri] [pairs] [lanes]
+    python3 scripts/kernel_variants.py [tri] [pairs] [lanes] [dense]
 
-(no argument: all three).
+(no argument: all four).
 """
 from __future__ import annotations
 
@@ -123,7 +127,8 @@ SPLINE = {
     "fence by the partials' writers only": [
         ("unsigned int total, bool* flag) {\n  __threadfence();",
          "unsigned int total, bool* flag,\n"
-         "                                            int writers) {\n"
+         "                                            "
+         "int writers = 1 << 30) {\n"
          "  if ((int)threadIdx.x < writers) __threadfence();"),
         ("arrive_last(groups + grp, gend - gb0, &flag)",
          "arrive_last(groups + grp, gend - gb0, &flag, W)"),
@@ -133,6 +138,158 @@ SPLINE = {
         ("qv[e] = in[e] ? q[p * B + b] : 0.f;",
          "qv[e] = in[e] ? __ldcs(q + p * B + b) : 0.f;")],
 }
+
+# The dense entry. Its earlier design, appended to the source beside
+# the shipped one and called as its wrapper called it
+# (one_term_dense_fwd): per
+# term one launch, one thread per pair with its table row read from device
+# memory per decoy, a block per 8 decoys, a binary search with a branch per
+# extrapolation case and three divisions per query, and the (B, n_blocks)
+# partials summed by a second launch.
+DENSE_ONE_TERM = r"""
+namespace {
+constexpr int ONE_TERM_THREADS = 256;
+constexpr int ONE_TERM_DECOYS = 8;
+
+__device__ __forceinline__ void one_term_spline_at(
+    const float* __restrict__ xs, int K, const float* __restrict__ y,
+    const float* __restrict__ m, float q, float& val, float& der) {
+  const float x0 = xs[0];
+  const float xl = xs[K - 1];
+  if (q < x0) {
+    const float h0 = xs[1] - x0;
+    const float y0 = y[0];
+    const float s = (y[1] - y0) / h0 - h0 * (2.f * m[0] + m[1]) / 6.f;
+    val = y0 + s * (q - x0);
+    der = s;
+    return;
+  }
+  if (q > xl) {
+    const float hn = xl - xs[K - 2];
+    const float yl = y[K - 1];
+    const float s =
+        (yl - y[K - 2]) / hn + hn * (m[K - 2] + 2.f * m[K - 1]) / 6.f;
+    val = yl + s * (q - xl);
+    der = s;
+    return;
+  }
+  int lo = 0, hi = K - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (xs[mid] <= q) lo = mid + 1; else hi = mid;
+  }
+  const int k = min(max(lo - 1, 0), K - 2);
+  const float xa = xs[k];
+  const float h = xs[k + 1] - xa;
+  const float ya = y[k], yb = y[k + 1], ma = m[k], mb = m[k + 1];
+  const float t = (q - xa) / h;
+  const float u = 1.f - t;
+  const float h2 = h * h / 6.f;
+  val = u * ya + t * yb + (u * u * u - u) * h2 * ma + (t * t * t - t) * h2 * mb;
+  der = (yb - ya) / h +
+        h / 6.f * (-(3.f * u * u - 1.f) * ma + (3.f * t * t - 1.f) * mb);
+}
+
+__global__ void __launch_bounds__(ONE_TERM_THREADS)
+spline_one_term_kernel(const float* __restrict__ y,
+                        const float* __restrict__ m,
+                        const float* __restrict__ x, int K,
+                        const float* __restrict__ q,
+                        const uint8_t* __restrict__ mask, long long n_pairs,
+                        int B, float* __restrict__ partial,
+                        float* __restrict__ deriv) {
+  __shared__ float xs[MAX_K];
+  __shared__ float red[ONE_TERM_DECOYS][ONE_TERM_THREADS / 32];
+  for (int i = threadIdx.x; i < K; i += ONE_TERM_THREADS) xs[i] = x[i];
+  __syncthreads();
+  const long long p = (long long)blockIdx.x * ONE_TERM_THREADS + threadIdx.x;
+  const bool on = p < n_pairs && mask[p] != 0;
+  const float* yr = y + p * K;
+  const float* mr = m + p * K;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int b0 = blockIdx.y * ONE_TERM_DECOYS;
+  for (int bl = 0; bl < ONE_TERM_DECOYS; ++bl) {
+    const int b = b0 + bl;
+    float v = 0.f;
+    if (b < B && p < n_pairs) {
+      float d = 0.f;
+      if (on)
+        one_term_spline_at(xs, K, yr, mr, q[(long long)b * n_pairs + p], v,
+                           d);
+      deriv[(long long)b * n_pairs + p] = d;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+    if (lane == 0) red[bl][warp] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < ONE_TERM_DECOYS) {
+    const int b = b0 + threadIdx.x;
+    if (b < B) {
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < ONE_TERM_THREADS / 32; ++w) s += red[threadIdx.x][w];
+      partial[(long long)b * gridDim.x + blockIdx.x] = s;
+    }
+  }
+}
+}  // namespace
+
+extern "C" int trx2dy_spline_one_term_blocks(long long n_pairs) {
+  return (int)((n_pairs + ONE_TERM_THREADS - 1) / ONE_TERM_THREADS);
+}
+
+extern "C" int trx2dy_spline_one_term(const float* y, const float* m,
+                                       const float* x, int K, const float* q,
+                                       const uint8_t* mask, long long n_pairs,
+                                       int B, float* partial, int n_blocks,
+                                       float* deriv, void* stream) {
+  if (K < 2 || K > MAX_K || B <= 0 || n_pairs <= 0 ||
+      n_blocks != trx2dy_spline_one_term_blocks(n_pairs) ||
+      (B + ONE_TERM_DECOYS - 1) / ONE_TERM_DECOYS > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(n_blocks, (B + ONE_TERM_DECOYS - 1) / ONE_TERM_DECOYS);
+  spline_one_term_kernel<<<grid, ONE_TERM_THREADS, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      y, m, x, K, q, mask, n_pairs, B, partial, deriv);
+  return (int)cudaGetLastError();
+}
+"""
+DENSE_END = ("  return dense_launch(terms, n_terms, q, B, buf, counter, "
+             "device, stream);\n}\n")
+DENSE = {
+    "shipped": [],
+    "tables re-read from L2 every step (one step of decoys a y-block)": [
+        ("  long long split = slots / blocks;",
+         "  long long split = steps;")],
+    "every table row copied, masked pairs too": [
+        ("          if (on_s[p1] || on_s[p2] || p2 > p1 + 1) pa[c] = p1;",
+         "          pa[c] = p1;")],
+    "table float4s loaded one at a time": [
+        ("constexpr int DENSE_COPY = 4;", "constexpr int DENSE_COPY = 1;")],
+    "no prefetch of the next step's queries": [
+        ("        qv[e] = qn[e];                            // step's loads "
+         "start here\n"
+         "        const int b = bb + DENSE_BATCH + ln + DENSE_LANES * e;\n"
+         "        qn[e] = on && b < c1 ? q[b * P + p] : 0.f;",
+         "        const int b = bb + ln + DENSE_LANES * e;\n"
+         "        qv[e] = on && b < c1 ? q[b * P + p] : 0.f;")],
+    "the distance past the end knots by branches": [
+        ("        const float off = qq - fminf(fmaxf(qq, x0), xl);",
+         "        const float off = qq < x0 ? qq - x0 : qq > xl ? qq - xl "
+         ": 0.f;")],
+    "the 6-step knot search for every K": [
+        ("count_le<TOP>(xs, qq)", "count_le(xs, qq)")],
+    "256 threads (2 decoy lanes), 4 blocks per SM": [
+        ("constexpr int DENSE_THREADS = 128;",
+         "constexpr int DENSE_THREADS = 256;"),
+        ("constexpr int DENSE_BLOCKS_PER_SM = 6;",
+         "constexpr int DENSE_BLOCKS_PER_SM = 4;")],
+    "earlier design: one launch and one partial sum per term": [
+        (DENSE_END, DENSE_END + DENSE_ONE_TERM)],
+}
+
 
 # The lanes entry. Each variant undoes one choice of its design; `data`
 # says which table storage its launch is given: "tab" the shipped interval
@@ -247,9 +404,10 @@ def build_variants(source: str, variants: dict, tag: str = "") -> dict:
     for n, (name, edits) in enumerate(variants.items()):
         text = src
         for old, new in edits:
-            if old not in text:
+            if text.count(old) != 1:
                 raise RuntimeError(f"{source} variant {name!r}: anchor "
-                                   f"{old[:40]!r} not in the source")
+                                   f"{old[:40]!r} is not in the source "
+                                   "exactly once")
             text = text.replace(old, new)
         cu = OUT / f"{source}_{tag}{n}.cu"
         cu.write_text(text)
@@ -279,7 +437,7 @@ def tri_fn(lib):
 
 def spline_lib(lib):
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for entry in ("pairs", "lanes"):
+    for entry in ("dense", "pairs", "lanes"):
         size = getattr(lib, f"trx2dy_spline_{entry}_buffer")
         size.argtypes, size.restype = [vp, i, i, i, vp], ll
         launch = getattr(lib, f"trx2dy_spline_{entry}")
@@ -422,7 +580,7 @@ _lib_shipped = se._lib
 
 def main(argv=None) -> int:
     which = set(sys.argv[1:] if argv is None else argv) or \
-        {"tri", "pairs", "lanes"}
+        {"tri", "pairs", "lanes", "dense"}
     if not torch.cuda.is_available():
         print("kernel_variants: needs a CUDA device", file=sys.stderr)
         return 1
@@ -437,6 +595,8 @@ def main(argv=None) -> int:
         tri_variants(dev, order)
     if "pairs" in which:
         pair_variants(dev, order)
+    if "dense" in which:
+        dense_variants(dev, order)
     return 0
 
 
@@ -481,6 +641,106 @@ def pair_variants(dev, order) -> None:
             "kernel": "spline_energy_pairs", "B": 50, "variant": name,
             "sum_rel_err": sum_err, "deriv_err": deriv_err,
             "kernel_ms": kernel, "wrapper_ms": wrapper}), flush=True)
+    se._lib = _lib_shipped
+
+
+
+def dense_inputs(dev, B: int, L: int):
+    """The dense entry's four terms (y, m, x, mask) and (B, L, L) queries
+    as chip_smoke.py's spline phase makes them."""
+    from trx2dy_torch.physics.restraints import compile_restraints, \
+        restraint_masks
+    rst = compile_restraints(cs.random_histograms(L, seed=L))
+    masks = restraint_masks(rst, "A" * L, 1, L)
+    terms, qs = [], []
+    for grid in cs.GRIDS:
+        tab = getattr(rst, grid)
+        K = tab.x.shape[0]
+        terms.append(tuple(torch.as_tensor(np.asarray(a), device=dev)
+                           for a in (tab.y, tab.m, tab.x,
+                                     getattr(masks, grid))))
+        qs.append(torch.as_tensor(cs.edge_queries(tab.x, (B, L, L),
+                                                  seed=K + L), device=dev))
+    return terms, qs
+
+
+def one_term_dense_fwd(lib, terms, qs):
+    """The earlier dense wrapper, once per term: the per-call checks, a
+    (B, n_blocks) partial and a deriv allocated, a launch under the
+    tensor's device context, and the partials summed by PyTorch."""
+    out = []
+    for (y, m, x, mask), q in zip(terms, qs):
+        B, L, _ = q.shape
+        K = x.shape[0]
+        for t, shape, dt in ((y, (L, L, K), torch.float32),
+                             (m, (L, L, K), torch.float32),
+                             (x, (K,), torch.float32),
+                             (mask, (L, L), torch.bool)):
+            if t.device != q.device or t.dtype != dt or \
+                    tuple(t.shape) != shape or not t.is_contiguous():
+                raise ValueError("one-term dense: malformed input")
+        if q.dtype != torch.float32 or not q.is_contiguous():
+            raise ValueError("one-term dense: malformed q")
+        n_blocks = lib.trx2dy_spline_one_term_blocks(L * L)
+        partial = torch.empty((B, n_blocks), dtype=torch.float32,
+                              device=q.device)
+        deriv = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            err = lib.trx2dy_spline_one_term(
+                y.data_ptr(), m.data_ptr(), x.data_ptr(), K, q.data_ptr(),
+                mask.data_ptr(), L * L, B, partial.data_ptr(), n_blocks,
+                deriv.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(
+                f"one-term dense launch failed: cudaError {err}")
+        out.append((partial.sum(dim=1), deriv))
+    return torch.stack([o[0] for o in out]), tuple(o[1] for o in out)
+
+
+def dense_variants(dev, order) -> None:
+    libs = {k: spline_lib(v) for k, v in build_variants(
+        "spline_energy", DENSE, "dense").items()}
+    earlier = "earlier design: one launch and one partial sum per term"
+    lib = libs[earlier]
+    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.trx2dy_spline_one_term_blocks.argtypes = [ll]
+    lib.trx2dy_spline_one_term_blocks.restype = i
+    lib.trx2dy_spline_one_term.argtypes = [vp, vp, vp, i, vp, vp, ll, i,
+                                            vp, i, vp, vp]
+    lib.trx2dy_spline_one_term.restype = i
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
+    for B, L in cs.SPLINE_SHAPES:
+        terms, qs = dense_inputs(dev, B, L)
+        ref_sums, ref_derivs = se.spline_dense_terms_plain(
+            [(y.double(), m.double(), x.double(), mk)
+             for y, m, x, mk in terms], [q.double() for q in qs])
+        for name in order(libs):
+            if name == earlier:
+                launch = lambda: one_term_dense_fwd(lib, terms, qs)
+                kernel = "spline_one_term_kernel"
+            else:
+                se._lib = lambda lib=libs[name]: lib
+                tables = se.SplineDense(terms)   # fresh layout, this build
+                launch = lambda tables=tables: se._dense_fwd(tables, qs)
+                kernel = "spline_dense_kernel"
+            sums, derivs = launch()
+            torch.cuda.synchronize()
+            sum_err = max(((s_.double() - r).abs().max()
+                           / r.abs().max().clamp_min(1.0)).item()
+                          for s_, r in zip(sums, ref_sums))
+            deriv_err = max(((d.double() - r).abs()
+                             / r.abs().clamp_min(1.0)).max().item()
+                            for d, r in zip(derivs, ref_derivs))
+            print("variant " + json.dumps({
+                "kernel": "spline_energy_dense", "B": B, "L": L,
+                "variant": name, "sum_rel_err": sum_err,
+                "deriv_err": deriv_err,
+                "kernel_ms": cs.kernel_device_ms(launch, kernel, iters=50),
+                "kernel_ms_l2_flushed": cs.kernel_device_ms(
+                    lambda: (flush.zero_(), launch()), kernel, iters=50),
+                "wrapper_ms": cs.time_ms(launch, iters=50)}), flush=True)
+        del terms, qs, ref_sums, ref_derivs
     se._lib = _lib_shipped
 
 

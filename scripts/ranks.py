@@ -35,10 +35,12 @@ def digest(tensors: Sequence[torch.Tensor]) -> str:
     return h.hexdigest()
 
 
-def _rank_main(rank, world_size, port, backend, fn, args, results):
+def _rank_main(rank, world_size, port, backend, work, results):
     # one host: gloo's pairs connect over the loopback interface
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
     torch.set_num_threads(1)
+    fn, args = pickle.loads(work.recv_bytes())
+    work.close()
     dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
                             rank=rank, world_size=world_size)
     try:
@@ -67,8 +69,9 @@ def spawn_ranks(fn: Callable, world_size: int, *args, backend: str = "gloo",
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
     results = ctx.Queue()
+    pipes = [ctx.Pipe(duplex=False) for _ in range(world_size)]
     procs = [ctx.Process(target=_rank_main, daemon=True,
-                         args=(r, world_size, port, backend, fn, args,
+                         args=(r, world_size, port, backend, pipes[r][0],
                                results))
              for r in range(world_size)]
     for p in procs:
@@ -76,6 +79,14 @@ def spawn_ranks(fn: Callable, world_size: int, *args, backend: str = "gloo",
     done, failed = {}, {}
     deadline = time.monotonic() + timeout
     try:
+        # fn and its arguments go through a pipe once every rank has
+        # started: a process started with them would hold the parent in
+        # start() until it had imported its modules, one rank after another
+        work = pickle.dumps((fn, args))
+        for recv, send in pipes:
+            recv.close()
+            send.send_bytes(work)
+            send.close()
         while len(done) < world_size and not failed:
             try:
                 rank, ok, value = results.get(timeout=1.0)

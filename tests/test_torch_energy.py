@@ -349,8 +349,8 @@ def test_batched_fused_matches_jax(restraints16, jax_vg, scorefxn, prec):
     assert _rel(dense, ref_e) < VALUE_TOL[prec]
     # the single-program fold's energy (JAX's _batch_energy) is this one
     e1, g1 = _port_vg(lambda xx, ww: tfolder._dense_energy(
-        rt, mt, ww, res_mask=torch.ones(L16, dtype=torch.bool))(xx), x, w,
-        prec)
+        trst.dense_splines(rt, mt), ww,
+        res_mask=torch.ones(L16, dtype=torch.bool))(xx), x, w, prec)
     assert np.array_equal(e1, e) and np.array_equal(g1, g)
 
 

@@ -3,12 +3,12 @@ and the decoy-sharded fold, on the CPU.
 
 One 4-process gloo world (dp=2, mp=2; scripts/ranks.py spawn_ranks, the
 ranks running tests/torch_parallel_ranks.py, which imports no JAX) runs
-every sharded case once per module, from the module's start, while the
-parent computes the references: the port's one-process results on the
-same inputs and the JAX package's, the step against
+every sharded case once per module, from the module's start, beside one
+more process computing the port's one-process results on the same
+inputs, while the parent computes the JAX package's: the step against
 make_train_step(mesh=None) (depth 1, B=2, R=4, L=8), the trunk against
 predictor2d_apply (JAX's test shapes: depth 2, R=8, L=12). The fold is
-held to one process on the same starts (L=16, 4 decoys, max_iter 10, no
+held to one process on the same starts (L=16, 4 decoys, max_iter 5, no
 FastRelax).
 """
 import concurrent.futures
@@ -66,28 +66,26 @@ def inputs():
 
 @pytest.fixture(scope="module", autouse=True)
 def world_started(inputs):
-    """The world runs from the module's start; teardown waits for it."""
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        future = pool.submit(spawn_ranks, ranks.world, 4, *inputs,
-                             timeout=300.0)
-        yield future
-        future.exception()
+    """The world and the one-process references run from the module's
+    start, each in processes of their own (one torch thread each, the same
+    CPU kernels); teardown waits for both."""
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        futures = (pool.submit(spawn_ranks, ranks.world, 4, *inputs,
+                               timeout=300.0),
+                   pool.submit(spawn_ranks, ranks.references, 1, *inputs,
+                               timeout=300.0))
+        yield futures
+        for future in futures:
+            future.exception()
 
 
 @pytest.fixture(scope="module")
-def refs(inputs):
-    """The references, computed while the world runs: the port's
-    one-process results, JAX's unsharded step loss and trunk logits."""
+def refs(inputs, world_started):
+    """The references: the port's one-process results (computed beside
+    the world), JAX's unsharded step loss and trunk logits (computed here
+    meanwhile)."""
     (params, batch), trunk, fold = inputs
     f2d, msa, labels, mask = batch
-    torch.set_num_threads(1)    # as the ranks: the same CPU kernels
-    try:
-        port = {"grads": {d: ranks.loss_and_grads(params, batch, d)
-                          for d in (False, True)},
-                "trunk": ranks.trunk_logits(*trunk),
-                "fold": ranks.fold(*fold)}
-    finally:
-        torch.set_num_threads(2)
     opt = jtrain.make_optimizer(lr=1e-3)
     state = jtrain.init_train_state(
         {k: jnp.asarray(v) for k, v in params.items()}, opt)
@@ -99,6 +97,7 @@ def refs(inputs):
     jax_trunk = jax.jit(predictor2d_apply, static_argnames="depth")(
         {k: jnp.asarray(v) for k, v in tparams.items()}, jnp.asarray(tf2d),
         jnp.asarray(tmsa), depth=ranks.TRUNK_DEPTH)
+    (port,) = world_started[1].result()
     return {**port, "jax_loss": float(jax_loss),
             "jax_trunk": {k: np.asarray(v) for k, v in jax_trunk.items()}}
 
@@ -106,7 +105,7 @@ def refs(inputs):
 @pytest.fixture(scope="module")
 def world(world_started):
     """Every rank's results (torch_parallel_ranks.world), in rank order."""
-    return world_started.result()
+    return world_started[0].result()
 
 
 def _rel(port, ref):

@@ -62,6 +62,12 @@ def _f64(tree):
         if np.issubdtype(np.asarray(a).dtype, np.floating) else a, tree)
 
 
+def _pack64(pin):
+    """JAX's packing constants (sidechain.pack_input) in float64."""
+    return pin._replace(**{k: jnp.asarray(getattr(pin, k), jnp.float64)
+                           for k in ("radii", "atom_mask", "chi_mask")})
+
+
 def _rel(port, ref):
     port, ref = np.asarray(port, np.float64), np.asarray(ref, np.float64)
     assert port.shape == ref.shape
@@ -117,9 +123,7 @@ def test_fa_weighted_fun_matches_jax_f64(ss):
     (g,) = torch.autograd.grad(e.sum(), xt)
 
     with jax.enable_x64(True):
-        pin = jside.pack_input(SEQ)
-        pin = pin._replace(**{k: jnp.asarray(getattr(pin, k), jnp.float64)
-                              for k in ("radii", "atom_mask", "chi_mask")})
+        pin = _pack64(jside.pack_input(SEQ))
         jcr = jax.tree.map(jnp.asarray,
                            jcompact.compact_restraints(_f64(jr), jm))
         # lbfgs_init's value and gradient of _fa_weighted_fun, through the
@@ -164,9 +168,7 @@ def test_repack_protocol_matches_jax_f64(shrunk):
         relax=(dev(r1), dev(r2)), pack=pack)
     assert tmin.STATS.free_evals > 0         # the packing, restraint-free
     with jax.enable_x64(True):
-        pin = jside.pack_input(SEQ)
-        pin = pin._replace(**{k: jnp.asarray(getattr(pin, k), jnp.float64)
-                              for k in ("radii", "atom_mask", "chi_mask")})
+        pin = _pack64(jside.pack_input(SEQ))
         jx, jf = jfolder._protocol_staged(
             jnp.asarray(x0), _f64(jr), stage, r1, r2, fastrelax=True,
             max_iter=3, dist_on_ca=False,
@@ -180,22 +182,36 @@ def test_repack_protocol_matches_jax_f64(shrunk):
     assert "relax2" not in {lab for lab, _, _ in log}
 
 
-def test_fold_ensemble_repack_matches_jax_distributionally(shrunk,
-                                                           repack_on):
+def test_fold_ensemble_repack_matches_jax_distributionally(
+        shrunk, repack_on, monkeypatch):
     """fold_ensemble with the switch on, FastRelax without the cartesian
     stages (cart_refine=False; they do not touch the switch, and JAX's
-    compiles of them would double the test's time)."""
+    compiles of them would double the test's time). JAX's fold_ensemble
+    runs its staged protocol in float64, its tables and packing constants
+    cast as test_repack_protocol_matches_jax_f64 casts them: at this L, B
+    and schedule the two calls' programs are the same (every pair list
+    fills one bucket), so a process traces them once."""
+    protocol = jfolder._protocol_staged
+
+    def protocol_f64(x0, rst, *args, pack_args, **kwargs):
+        pin, ss = pack_args
+        return protocol(jnp.asarray(x0, jnp.float64), _f64(rst), *args,
+                        pack_args=(_pack64(pin), ss), **kwargs)
+
+    monkeypatch.setattr(jfolder, "_protocol_staged", protocol_f64)
     npz = _rand_npz(L, key=9)
     x0 = _helices(B, seed=8).astype(np.float32)
-    ref = jfolder.fold_ensemble(npz, SEQ, jax.random.PRNGKey(0), n_decoys=B,
-                                max_iter=3, x0=jnp.asarray(x0),
-                                cart_refine=False)
+    with jax.enable_x64(True):
+        ref = jfolder.fold_ensemble(npz, SEQ, jax.random.PRNGKey(0),
+                                    n_decoys=B, max_iter=3,
+                                    x0=jnp.asarray(x0), cart_refine=False)
+        e_ref = np.asarray(ref.energy)
     log = []
     tmin.STATS.reset()
     port = tfolder.fold_ensemble(npz, SEQ, None, n_decoys=B, max_iter=3,
                                  x0=x0, cart_refine=False, device="cpu",
                                  stage_log=log)
-    e, e_ref = port.energy.numpy(), np.asarray(ref.energy)
+    e = port.energy.numpy()
     rst = trst.compile_restraints(npz)
     (m,) = tfolder._stage_masks_centroid(rst, SEQ, 2, 0.05)
     cr = tcompact.compact_to(tcompact.compact_restraints(rst, m), L, "cpu")

@@ -5,9 +5,9 @@ tests hold that arithmetic (the interval search, the cubic, the linear
 extrapolation, the masking and the one-multiply backward) against the
 Pallas kernel in interpret mode, spline.masked_spline_energy,
 masked_spline_energy_pb and compact.compact_restraint_energy_batch. The
-CUDA kernel has no CPU mode; chip_smoke.py holds both of its entries (the
-dense one and the fused four-term pair entry) against float64 plain
-versions on the card.
+CUDA kernel has no CPU mode; chip_smoke.py holds its entries (the dense
+and the pair entry, each four terms in one launch, and the lanes entry)
+against float64 plain versions on the card.
 """
 import numpy as np
 import pytest
@@ -22,8 +22,9 @@ from trx2dy.physics import compact as jcompact
 from trx2dy.physics import restraints as jrst
 from trx2dy.physics import spline as jspline
 from trx2dy_torch.ops.spline_energy import (
-    SplinePairs, _check, _check_queries, spline_dense_plain,
-    spline_energy_dense, spline_energy_pairs, spline_pairs_plain,
+    SplineDense, SplinePairs, _check_queries, spline_dense_plain,
+    spline_dense_terms_plain, spline_energy_dense, spline_energy_dense_terms,
+    spline_energy_pairs, spline_pairs_plain,
 )
 from trx2dy_torch.physics import compact as tcompact
 from trx2dy_torch.physics import restraints as trst
@@ -289,13 +290,122 @@ def test_wrappers_count_no_launch_on_cpu(tables):
     terms = [tuple(torch.from_numpy(a) for a in t)
              for t in _pair_terms(tables)]
     qs = [torch.zeros(40, 2) for _ in terms]
+    dense = SplineDense([(*args, torch.ones(13, 13, dtype=torch.bool))])
     before = (spline_energy_dense.launches, spline_energy_pairs.launches)
     spline_energy_dense(*args, q, torch.ones(13, 13, dtype=torch.bool))
+    spline_energy_dense_terms(dense, [q])
     spline_energy_pairs(SplinePairs(terms), qs)
     assert (spline_energy_dense.launches,
             spline_energy_pairs.launches) == before
     with pytest.raises(ValueError, match="CUDA"):
-        _check("spline_energy_dense", *args, q,
-               torch.ones(13, 13, dtype=torch.bool), (13, 13), (13, 13))
+        _check_queries(dense, [q])
     with pytest.raises(ValueError, match="CUDA"):
         _check_queries(SplinePairs(terms), qs)
+
+
+def _dense_terms(tables, B, seed=0):
+    """The four grids' (y, m, x, mask) as tensors, seeded masks, and one
+    (B, L, L) query tensor per grid with the edge cases mixed in."""
+    terms, qs = [], []
+    for n, grid in enumerate(GRIDS):
+        tab = getattr(tables, grid)
+        L = tab.y.shape[0]
+        mask = np.random.default_rng(seed + n).random((L, L)) < 0.6
+        terms.append(tuple(torch.from_numpy(a)
+                           for a in (tab.y, tab.m, tab.x, mask)))
+        qs.append(torch.from_numpy(_queries(tab.x, (B, L, L),
+                                            seed=seed + 10 + n)))
+    return terms, qs
+
+
+def test_dense_terms_plain_is_four_one_term_calls(tables):
+    """The dense entry's four-term plain version (one launch on the card)
+    equals four one-term spline_dense_plain calls, bit for bit, and so does
+    its autograd Function against four one-term spline_energy_dense
+    calls."""
+    terms, qs = _dense_terms(tables, 3)
+    sums, derivs = spline_dense_terms_plain(terms, qs)
+    assert sums.shape == (4, 3)
+    for n, (term, q) in enumerate(zip(terms, qs)):
+        one, d = spline_dense_plain(*term[:3], q, term[3])
+        assert torch.equal(sums[n], one) and torch.equal(derivs[n], d)
+    qg = [q.clone().requires_grad_(True) for q in qs]
+    g = torch.tensor([[1.0, 2.0, 3.0]]) * torch.tensor([[1.0], [-2.0], [0.5],
+                                                        [4.0]])
+    out = spline_energy_dense_terms(SplineDense(terms), qg)
+    assert torch.equal(out.detach(), sums)
+    (out * g).sum().backward()
+    for n, (term, q) in enumerate(zip(terms, qs)):
+        q1 = q.clone().requires_grad_(True)
+        (spline_energy_dense(*term[:3], q1, term[3]) * g[n]).sum().backward()
+        assert torch.equal(qg[n].grad, q1.grad)
+
+
+def test_dense_terms_match_pallas_interpret(tables):
+    """Each term of one four-term call against JAX's spline_energy_batch
+    (the Pallas kernel in interpret mode), at the tolerance of
+    test_dense_plain_matches_pallas_interpret (sums within 1e-5 of
+    sum |value|), and the backward against jax.grad of the same weighted
+    sum (1e-5)."""
+    B = 2
+    terms, qs = _dense_terms(tables, B, seed=20)
+    w = np.array([1.0, -2.0, 0.5, 4.0], np.float32)
+    gb = np.array([1.0, -3.0], np.float32)
+    qg = [q.clone().requires_grad_(True) for q in qs]
+    sums = spline_energy_dense_terms(SplineDense(terms), qg)
+    (sums * torch.from_numpy(w[:, None] * gb[None])).sum().backward()
+    np_terms = [tuple(t.numpy() for t in term) for term in terms]
+    for n, ((y, m, x, mask), q) in enumerate(zip(np_terms, qs)):
+        ref = spline_energy_batch(y, m, x, jnp.asarray(q.numpy()), mask,
+                                  True)
+        val, _ = jspline.evaluate_spline_with_deriv(
+            jspline.SplineTable(jnp.asarray(x), jnp.asarray(y),
+                                jnp.asarray(m)), jnp.asarray(q.numpy()))
+        scale = float(np.abs(np.where(mask, np.asarray(val), 0)).sum(
+            axis=(1, 2)).max())
+        _close(sums[n].detach(), ref, scale)
+        ref_g = jax.grad(lambda qq: jnp.sum(spline_energy_batch(
+            y, m, x, qq, mask, True) * gb * w[n]))(jnp.asarray(q.numpy()))
+        _close(qg[n].grad, ref_g)
+
+
+@pytest.mark.parametrize("fault", ["terms", "shape", "L", "dtype", "K",
+                                   "mask_dtype", "devices", "contiguity"])
+def test_spline_dense_rejects_malformed_tables(tables, fault):
+    """SplineDense checks a stage's tables once, when built: the number of
+    terms, shapes (one L for all terms), dtypes, K <= 64, one device and
+    contiguity."""
+    terms, _ = _dense_terms(tables, 1)
+    y, m, x, mask = terms[1]
+    if fault == "terms":
+        bad = terms + terms[:1]
+    elif fault == "shape":
+        bad = [(y[:, :, :-1], m, x, mask)]
+    elif fault == "L":
+        L = mask.shape[0]
+        bad = [terms[0], (y[:L - 1, :L - 1].contiguous(),
+                          m[:L - 1, :L - 1].contiguous(), x,
+                          mask[:L - 1, :L - 1].contiguous())]
+    elif fault == "dtype":
+        bad = [(y.half(), m.half(), x.half(), mask)]
+    elif fault == "K":
+        K = 65
+        L = mask.shape[0]
+        bad = [(torch.zeros(L, L, K), torch.zeros(L, L, K),
+                torch.arange(K, dtype=torch.float32), mask)]
+    elif fault == "mask_dtype":
+        bad = [(y, m, x, mask.to(torch.uint8))]
+    elif fault == "devices":
+        bad = [(y, m, x, mask.to("meta"))]
+    else:
+        wide = torch.repeat_interleave(y, 2, dim=-1)[..., ::2]
+        assert not wide.is_contiguous()
+        bad = [(wide, m, x, mask)]
+    with pytest.raises(ValueError, match="must be|K <= 64|terms"):
+        SplineDense(bad)
+    good = SplineDense(terms)
+    L = mask.shape[0]
+    assert good.sizes == (L * L,) * 4 and good.L == L
+    # the kernel's stage constants: P = L * L pairs a term, each term's K
+    assert [(t.P, t.K) for t in good._launch_constants(None)] == \
+        [(L * L, x.shape[0]) for _, _, x, _ in terms]

@@ -321,6 +321,30 @@ def test_remat_with_dropout_equals_no_remat(data):
     assert train.step_seed(4, 0) != train.step_seed(4, 1)
 
 
+def test_train_step_pins_float32(data):
+    """Building a train step switches TF32 (matmuls and cuDNN's
+    convolutions) and bf16 reduced-precision reductions off, whatever the
+    caller set before and on any device, as JAX pins Precision.HIGHEST;
+    the flags stay off after a step on the CPU."""
+    flags = (torch.backends.cuda.matmul, "allow_tf32"), \
+        (torch.backends.cudnn, "allow_tf32"), \
+        (torch.backends.cuda.matmul, "allow_bf16_reduced_precision_reduction")
+    saved = [getattr(o, n) for o, n in flags]
+    try:
+        for o, n in flags:
+            setattr(o, n, True)
+        opt = train.make_optimizer()
+        state = train.init_train_state(build_model(data[0], "cpu"), opt)
+        step = train.make_train_step(opt)
+        assert not any(getattr(o, n) for o, n in flags)
+        state, loss = step(state, *_batch(data))
+        assert np.isfinite(float(loss)) and state.step == 1
+        assert not any(getattr(o, n) for o, n in flags)
+    finally:
+        for (o, n), v in zip(flags, saved):
+            setattr(o, n, v)
+
+
 @pytest.mark.parametrize("dropout, remat", [(False, False), (True, False),
                                             (False, True), (True, True)],
                          ids=["plain", "dropout", "remat", "dropout_remat"])

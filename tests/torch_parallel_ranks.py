@@ -24,7 +24,7 @@ TRUNK_DEPTH = 2
 DROPOUT_SEED = 7
 STEPS = 3
 FOLD_DECOYS = 4
-FOLD_ITERS = 10
+FOLD_ITERS = 5
 
 
 def tensors(batch, device="cpu"):
@@ -85,6 +85,16 @@ def fold(npz, seq, seed, mesh=None, n_decoys=FOLD_DECOYS):
             "energy": res.energy.numpy(),
             "ca": res.atoms["CA"].numpy(), "xyz": xyz.numpy(),
             "chi": chi.numpy()}
+
+
+def references(train, trunk, fold_args):
+    """The one-process results the world is held to, on the same inputs:
+    the loss and gradients without and with dropout, the trunk's logits
+    and the fold (in a process of its own, one torch thread, as a rank)."""
+    params, batch = train
+    return {"grads": {d: loss_and_grads(params, batch, d)
+                      for d in (False, True)},
+            "trunk": trunk_logits(*trunk), "fold": fold(*fold_args)}
 
 
 def world(train, trunk, fold_args):

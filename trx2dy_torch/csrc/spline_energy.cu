@@ -10,8 +10,12 @@
 // masked), so the backward pass is one multiply.
 //
 // Three entry points:
-//   dense  y, m (L*L, K), q (B, L*L), mask (L*L)  -> the TPU kernel's layout,
-//          one term per launch; the caller sums the (B, n_blocks) partials.
+//   dense  up to four terms at once, each y, m (L*L, K_t), x (K_t),
+//          mask (L*L), q (B, L*L): the TPU kernel's own layout
+//          (spline_energy_batch), run by the single-program fold
+//          (trx2dy/physics/folder.py:_batch_energy via
+//          energy.batched_energy_fused). One launch per energy evaluation
+//          writes every term's deriv (B, L*L) and the (n_terms, B) sums.
 //   pairs  up to four terms at once, each y, m (P_t, K_t), x (K_t),
 //          q (P_t, B), act (P_t): the compacted pair lists the production
 //          fold evaluates (trx2dy/physics/spline.py:_eval_with_deriv_pb via
@@ -32,19 +36,51 @@
 // interval's four table values and writes one derivative, with ~40 flops,
 // far below the 67 TFLOP/s f32 rate, so it is bound by bytes: one
 // evaluation of the fold at L=150, B=50 moves ~44 MB (q, deriv, the table
-// rows), about 13 us at 3.35 TB/s. The lanes entry moves q, act and deriv
-// per (pair, lane), 9 bytes, and 16 bytes per distinct (pair, row,
+// rows), about 13 us at 3.35 TB/s; the dense entry's four terms at the
+// same size ~45 MB (the active pairs' q and table rows, every deriv),
+// 13.4 us, of which it takes ~34 us as well with the L2 flushed as warm
+// (scripts/kernel_variants.py): what holds it is on the SM, each query's
+// instructions (knot search, cubic, selects, addressing) and their latency
+// on 24 warps an SM, not device memory. The lanes entry moves q, act and
+// deriv per (pair, lane), 9 bytes, and 16 bytes per distinct (pair, row,
 // interval) its active queries touch: at a full L=150 union with B=32 that
 // is ~10-40 MB by the lane map, 3-12 us; at L=64 under 3 us, where the
 // launch's latency chain (activity and query, interval search, table
 // load, derivative store, two fenced rendezvous for the sums) and not the
 // bytes is what it waits on.
 //
-// Dense design: knots go to shared memory once per block; each thread finds
-// its interval by binary search over at most 64 knots (not the TPU kernel's
-// masked scan over all K-1 intervals) and reads the four table values from
-// the K-contiguous row; each block writes one fixed-order partial per decoy.
-//
+// Dense design (the tables are shared by every decoy, so the work is to
+// read them once and stream q and deriv past them):
+//  - one launch for all terms, as the pair entry: a block takes a tile of
+//    DENSE_TILE consecutive pairs of one term and walks every decoy of its
+//    decoy chunk; the host makes one chunk of all B decoys wherever the
+//    tiles alone fill a wave of resident blocks (at L=150, 4 terms: 704
+//    tiles), so each table row crosses from device memory once per
+//    evaluation (smaller L splits B into chunks that re-read the tile from
+//    L2);
+//  - the block copies its tile's table rows, contiguous in (L*L, K), into
+//    shared memory once with 16-byte loads, DENSE_COPY of y and of m in
+//    flight a thread, skipping those of masked pairs, and stores them as
+//    (y[k], m[k]) pairs in rows of odd stride K|1: a thread keeps one pair,
+//    so the 32 threads of a warp read their rows at one interval from
+//    distinct banks, one 8-byte load for k and one for k+1;
+//  - 128 threads are the tile's 128 pairs, 6 blocks to an SM (80
+//    registers a thread), each thread with DENSE_ELEMS decoys' q in use
+//    and the next step's in flight (the first step's load beside the
+//    table copy); q[b, tile] is read and deriv[b, tile] written coalesced,
+//    a masked pair's q never;
+//  - per query: the pair entry's branch-free search over knots padded with
+//    +inf, unrolled to the depth this term's K needs (6 steps at K=35, 5 at
+//    28, 4 at 16), its per-interval x, 1/h, h/6 and h*h/6 (one 16-byte
+//    shared load), and the cubic at t clamped to [0, 1] plus the slope
+//    times the query's distance past the end knot, so a query outside the
+//    knots evaluates the first or last interval with the same instructions
+//    (selects and min/max, no branch);
+//  - per decoy, a warp's values are summed by a reduce-scatter (6 shuffles
+//    for 4 decoys), the warps in order by one thread, and the per-block
+//    partials are finished in the kernel by the pair entry's fixed-order
+//    two-level sum, so repeated launches are bit-identical.
+
 // Pair and lanes design (one kernel body, LANES a template flag that only
 // changes the table load and the activity index), for launch count and
 // latency rather than bytes:
@@ -98,7 +134,8 @@
 // One term's stage constants as the host holds them (ctypes mirrors it).
 // The lanes entry's y is the interval table tab (P, U, K-1, 4), 16-byte
 // aligned, m is unused, act is (P, B) and row (B,) maps each lane to its
-// table row; the pair entry leaves row null and U 0.
+// table row; the pair entry leaves row null and U 0; the dense entry's act
+// is the (L*L) mask, P = L*L.
 struct PairTerm {
   const float* y;          // (P, K); lanes: tab (P, U, K-1, 4)
   const float* m;          // (P, K); lanes: unused
@@ -114,9 +151,19 @@ namespace {
 
 constexpr int MAX_K = 64;
 
-// dense entry: one thread per pair, DENSE_DECOYS decoys per block
-constexpr int DENSE_THREADS = 256;
-constexpr int DENSE_DECOYS = 8;
+// dense entry: DENSE_THREADS threads = DENSE_TILE pairs x DENSE_LANES decoy
+// lanes, DENSE_ELEMS decoys in flight per thread
+constexpr int DENSE_TILE = 128;
+constexpr int DENSE_THREADS = 128;
+constexpr int DENSE_LANES = DENSE_THREADS / DENSE_TILE;
+constexpr int DENSE_ELEMS = 4;
+constexpr int DENSE_BATCH = DENSE_LANES * DENSE_ELEMS;   // decoys per step
+constexpr int DENSE_WARPS = DENSE_TILE / 32;             // warps per lane
+constexpr int DENSE_BLOCKS_PER_SM = 6;   // resident blocks the grid aims at
+constexpr int DENSE_COPY = 4;   // table float4s a thread loads at once
+static_assert(DENSE_ELEMS == 4, "the reduce-scatter is written for 4");
+static_assert(DENSE_TILE % 32 == 0 && DENSE_THREADS % DENSE_TILE == 0,
+              "a warp keeps one decoy lane");
 // pair entry: PAIR_THREADS threads per block, PAIR_ELEMS pairs per thread,
 // GROUP blocks per first-level sum
 constexpr int PAIR_THREADS = 256;
@@ -125,89 +172,6 @@ constexpr int MAX_TERMS = 4;
 constexpr int GROUP = 64;
 constexpr int PAIR_BLOCKS_PER_SM = 4;   // resident blocks the grid aims at
 constexpr int SUM_LOADS = 16;   // partials a thread loads at once when summing
-
-__device__ __forceinline__ void spline_at(const float* __restrict__ xs, int K,
-                                          const float* __restrict__ y,
-                                          const float* __restrict__ m,
-                                          float q, float& val, float& der) {
-  const float x0 = xs[0];
-  const float xl = xs[K - 1];
-  if (q < x0) {
-    const float h0 = xs[1] - x0;
-    const float y0 = y[0];
-    const float s = (y[1] - y0) / h0 - h0 * (2.f * m[0] + m[1]) / 6.f;
-    val = y0 + s * (q - x0);
-    der = s;
-    return;
-  }
-  if (q > xl) {
-    const float hn = xl - xs[K - 2];
-    const float yl = y[K - 1];
-    const float s = (yl - y[K - 2]) / hn + hn * (m[K - 2] + 2.f * m[K - 1]) / 6.f;
-    val = yl + s * (q - xl);
-    der = s;
-    return;
-  }
-  // count = #{xs[0 .. K-2] <= q}, by binary search (a NaN q counts 0)
-  int lo = 0, hi = K - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (xs[mid] <= q) lo = mid + 1; else hi = mid;
-  }
-  const int k = min(max(lo - 1, 0), K - 2);
-  const float xa = xs[k];
-  const float h = xs[k + 1] - xa;
-  const float ya = y[k], yb = y[k + 1], ma = m[k], mb = m[k + 1];
-  const float t = (q - xa) / h;
-  const float u = 1.f - t;
-  const float h2 = h * h / 6.f;
-  val = u * ya + t * yb + (u * u * u - u) * h2 * ma + (t * t * t - t) * h2 * mb;
-  der = (yb - ya) / h +
-        h / 6.f * (-(3.f * u * u - 1.f) * ma + (3.f * t * t - 1.f) * mb);
-}
-
-__global__ void __launch_bounds__(DENSE_THREADS)
-spline_dense_kernel(const float* __restrict__ y, const float* __restrict__ m,
-                    const float* __restrict__ x, int K,
-                    const float* __restrict__ q,
-                    const uint8_t* __restrict__ mask, long long n_pairs, int B,
-                    float* __restrict__ partial, float* __restrict__ deriv) {
-  __shared__ float xs[MAX_K];
-  __shared__ float red[DENSE_DECOYS][DENSE_THREADS / 32];
-  for (int i = threadIdx.x; i < K; i += DENSE_THREADS) xs[i] = x[i];
-  __syncthreads();
-
-  const long long p = (long long)blockIdx.x * DENSE_THREADS + threadIdx.x;
-  const bool on = p < n_pairs && mask[p] != 0;
-  const float* yr = y + p * K;
-  const float* mr = m + p * K;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int b0 = blockIdx.y * DENSE_DECOYS;
-
-  for (int bl = 0; bl < DENSE_DECOYS; ++bl) {
-    const int b = b0 + bl;                 // uniform over the block
-    float v = 0.f;
-    if (b < B && p < n_pairs) {
-      float d = 0.f;   // a masked element is never evaluated: 0, 0
-      if (on) spline_at(xs, K, yr, mr, q[(long long)b * n_pairs + p], v, d);
-      deriv[(long long)b * n_pairs + p] = d;
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-    if (lane == 0) red[bl][warp] = v;
-  }
-  __syncthreads();
-  if (threadIdx.x < DENSE_DECOYS) {
-    const int b = b0 + threadIdx.x;
-    if (b < B) {
-      float s = 0.f;
-#pragma unroll
-      for (int w = 0; w < DENSE_THREADS / 32; ++w) s += red[threadIdx.x][w];
-      partial[(long long)b * gridDim.x + blockIdx.x] = s;
-    }
-  }
-}
 
 // ---------------------------------------------------------------- pairs
 
@@ -245,13 +209,22 @@ __device__ __forceinline__ X pick(const X (&v)[N], int i) {
 // #{xs[0 .. 63] <= q} for knots padded with +inf: six branch-free steps
 // (a NaN q counts 0). Padding never counts for a finite q, and counting
 // x[K-1] too changes k only where q == x[K-1], which the clip maps to K-2
-// as the TPU kernel's count over x[:K-1] does.
-__device__ __forceinline__ int count_le(const float* __restrict__ xs, float q) {
+// as the TPU kernel's count over x[:K-1] does. With TOP the largest power
+// of two <= K - 1, the steps TOP, TOP/2, .., 1 count the knots up to index
+// 2 TOP - 2 >= K - 2, which is all the clip to K - 2 needs.
+template <int TOP = 32>
+__device__ __forceinline__ int count_le(const float* __restrict__ xs,
+                                        float q) {
   int pos = 0;
 #pragma unroll
-  for (int s = 32; s > 0; s >>= 1) pos += (xs[pos + s - 1] <= q) ? s : 0;
+  for (int s = TOP; s > 0; s >>= 1) pos += (xs[pos + s - 1] <= q) ? s : 0;
   return pos;
 }
+
+template <int N>
+struct Int {
+  static constexpr int value = N;
+};
 
 // Sum of rows first, first + R, ... < end of src (rows of B floats) at
 // column b, in that order: the first SUM_LOADS loads are all in flight before
@@ -565,33 +538,329 @@ int pairs_launch(const PairTerm* terms, int n_terms, const float* const* q,
   return err;
 }
 
+// ---------------------------------------------------------------- dense
+
+struct DenseLaunch {       // the kernel's parameter block, passed by value
+  const float* y[MAX_TERMS];     // (P, K_t), 16-byte aligned
+  const float* m[MAX_TERMS];
+  const float* x[MAX_TERMS];
+  const uint8_t* mask[MAX_TERMS];  // (P,)
+  const float* q[MAX_TERMS];     // (B, P)
+  float* deriv[MAX_TERMS];       // (B, P)
+  int K[MAX_TERMS];
+  int block0[MAX_TERMS + 1];     // first x-block of each term; unused = end
+  int group0[MAX_TERMS + 1];     // first group of each term; unused = end
+  int P;                         // pairs of every term, L*L
+  int n_terms;
+  int B;
+  int chunk;                     // decoys per y-block, a multiple of
+                                 // DENSE_BATCH
+  float* partial;                // (gridDim.x, B) per block
+  float* gpartial;               // (n_groups, B) per group
+  float* sums;                   // (n_terms, B)
+  unsigned int* counter;         // as PairLaunch's
+};
+
+__global__ void __launch_bounds__(DENSE_THREADS, DENSE_BLOCKS_PER_SM)
+spline_dense_kernel(const DenseLaunch a) {
+  extern __shared__ float2 rows[];   // (y[k], m[k]): DENSE_TILE rows of K|1
+  __shared__ float xs[MAX_K];        // knots, +inf past K
+  __shared__ float4 iv[MAX_K];       // per interval k: x[k], 1/h, h/6, h*h/6
+  __shared__ float red[2][DENSE_BATCH][DENSE_WARPS];
+  __shared__ bool on_s[DENSE_TILE];
+  __shared__ bool is_last;
+
+  const int bx = blockIdx.x;
+  const int ti = (bx >= a.block0[1]) + (bx >= a.block0[2]) +
+                 (bx >= a.block0[3]);           // this block's term, uniform
+  const int K = pick(a.K, ti);
+  const int S = K | 1;                          // odd row stride
+  const int P = a.P, B = a.B;
+  const int tid = threadIdx.x;
+  const int b0 = pick(a.block0, ti);
+  const int p0 = (bx - b0) * DENSE_TILE;
+  const int np = min(DENSE_TILE, P - p0);       // pairs of this tile
+  if (tid < MAX_K) {
+    const float* xg = pick(a.x, ti);
+    const float xa = tid < K ? xg[tid] : INFINITY;
+    xs[tid] = xa;
+    if (tid < K - 1) {
+      const float h = xg[tid + 1] - xa;
+      iv[tid] = make_float4(xa, 1.f / h, h / 6.f, h * h / 6.f);
+    }
+  }
+  if (tid < DENSE_TILE) on_s[tid] = tid < np && pick(a.mask, ti)[p0 + tid];
+  __syncthreads();
+
+  const int pl = tid % DENSE_TILE;
+  const int ln = tid / DENSE_TILE;              // decoy lane
+  const bool in = pl < np;
+  const bool on = on_s[pl];
+  const int p = p0 + pl;
+  const float* __restrict__ q = pick(a.q, ti);
+  const int c0 = blockIdx.y * a.chunk;
+  const int c1 = min(c0 + a.chunk, B);
+  float qn[DENSE_ELEMS];          // the next step's queries: the first
+#pragma unroll                    // step's are loaded beside the tables
+  for (int e = 0; e < DENSE_ELEMS; ++e) {
+    const int b = c0 + ln + DENSE_LANES * e;
+    qn[e] = on && b < c1 ? q[b * P + p] : 0.f;
+  }
+
+  // the tile's table rows: 16-byte loads of the contiguous (np, K) blocks
+  // of y and m (p0 * K is a multiple of 4), those touching no active pair
+  // skipped; a thread starts DENSE_COPY loads of each before it stores any
+  {
+    const float* yg = pick(a.y, ti) + p0 * K;
+    const float* mg = pick(a.m, ti) + p0 * K;
+    const int n = np * K;
+    for (int f0 = tid; 4 * f0 < n; f0 += DENSE_COPY * DENSE_THREADS) {
+      float4 vy[DENSE_COPY], vm[DENSE_COPY];
+      int pa[DENSE_COPY];                // first pair of each, -1: skipped
+#pragma unroll
+      for (int c = 0; c < DENSE_COPY; ++c) {
+        const int e = 4 * (f0 + c * DENSE_THREADS);
+        pa[c] = -1;
+        if (e < n) {
+          const int p1 = e / K, p2 = min(e + 3, n - 1) / K;
+          if (on_s[p1] || on_s[p2] || p2 > p1 + 1) pa[c] = p1;
+        }
+        if (pa[c] >= 0 && e + 3 < n) {
+          vy[c] = __ldg(reinterpret_cast<const float4*>(yg + e));
+          vm[c] = __ldg(reinterpret_cast<const float4*>(mg + e));
+        } else if (pa[c] >= 0) {          // the ragged end: scalars
+          vy[c] = make_float4(yg[e], e + 1 < n ? yg[e + 1] : 0.f,
+                              e + 2 < n ? yg[e + 2] : 0.f, 0.f);
+          vm[c] = make_float4(mg[e], e + 1 < n ? mg[e + 1] : 0.f,
+                              e + 2 < n ? mg[e + 2] : 0.f, 0.f);
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < DENSE_COPY; ++c) {
+        if (pa[c] < 0) continue;
+        const int e = 4 * (f0 + c * DENSE_THREADS);
+        const float yv[4] = {vy[c].x, vy[c].y, vy[c].z, vy[c].w};
+        const float mv[4] = {vm[c].x, vm[c].y, vm[c].z, vm[c].w};
+        int pp = pa[c], kk = e - pp * K;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (e + j < n) rows[pp * S + kk] = make_float2(yv[j], mv[j]);
+          if (++kk == K) {
+            kk = 0;
+            ++pp;
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  const int lane = tid & 31;
+  const int wl = (tid >> 5) % DENSE_WARPS;      // warp within its lane
+  float* __restrict__ deriv = pick(a.deriv, ti);
+  const float2* row = rows + pl * S;
+  const float x0 = xs[0], xl = xs[K - 1];
+
+  // the decoy walk, its knot search unrolled for this term's K
+  auto walk = [&](auto top) {
+    constexpr int TOP = decltype(top)::value;
+    int step = 0;
+    for (int bb = c0; bb < c1; bb += DENSE_BATCH, ++step) {
+      float qv[DENSE_ELEMS];
+#pragma unroll
+      for (int e = 0; e < DENSE_ELEMS; ++e) {     // this step's; the next
+        qv[e] = qn[e];                            // step's loads start here
+        const int b = bb + DENSE_BATCH + ln + DENSE_LANES * e;
+        qn[e] = on && b < c1 ? q[b * P + p] : 0.f;
+      }
+      float v[DENSE_ELEMS];
+#pragma unroll
+      for (int e = 0; e < DENSE_ELEMS; ++e) {
+        const int b = bb + ln + DENSE_LANES * e;
+        const float qq = qv[e];
+        const int kk = min(max(count_le<TOP>(xs, qq) - 1, 0), K - 2);
+        const float4 c = iv[kk];                // x[k], 1/h, h/6, h*h/6
+        const float2 lo = row[kk], hi = row[kk + 1];   // (y, m) at k, k+1
+        float t = (qq - c.x) * c.y;
+        t = t < 0.f ? 0.f : t > 1.f ? 1.f : t;    // a NaN stays NaN
+        const float u = 1.f - t;
+        const float d = (hi.x - lo.x) * c.y +
+                        c.z * (-(3.f * u * u - 1.f) * lo.y +
+                               (3.f * t * t - 1.f) * hi.y);
+        // the distance past the end knots: 0 inside, NaN for a NaN
+        const float off = qq - fminf(fmaxf(qq, x0), xl);
+        const float val = u * lo.x + t * hi.x +
+                          (u * u * u - u) * c.w * lo.y +
+                          (t * t * t - t) * c.w * hi.y + d * off;
+        const bool live = on && b < c1;           // never evaluated: 0, 0
+        v[e] = live ? val : 0.f;
+        if (in && b < c1) deriv[b * P + p] = live ? d : 0.f;
+      }
+      // reduce-scatter over the warp: lane ends with decoy e = lane >> 3
+      const unsigned full = 0xffffffffu;
+      const bool h16 = lane & 16, h8 = lane & 8;
+      const float w0 = (h16 ? v[2] : v[0]) +
+                       __shfl_xor_sync(full, h16 ? v[0] : v[2], 16);
+      const float w1 = (h16 ? v[3] : v[1]) +
+                       __shfl_xor_sync(full, h16 ? v[1] : v[3], 16);
+      float w = (h8 ? w1 : w0) + __shfl_xor_sync(full, h8 ? w0 : w1, 8);
+      w += __shfl_xor_sync(full, w, 4);
+      w += __shfl_xor_sync(full, w, 2);
+      w += __shfl_xor_sync(full, w, 1);
+      if ((lane & 7) == 0)
+        red[step & 1][ln + DENSE_LANES * (lane >> 3)][wl] = w;
+      __syncthreads();           // red[step & 1] is read before step + 2
+      if (tid < DENSE_BATCH && bb + tid < c1) {
+        float s = 0.f;
+#pragma unroll
+        for (int u = 0; u < DENSE_WARPS; ++u) s += red[step & 1][tid][u];
+        a.partial[(long long)bx * B + bb + tid] = s;
+      }
+    }
+  };
+  const int top = K - 1 >= 32 ? 32 : K - 1 >= 16 ? 16 : K - 1 >= 8 ? 8
+                : K - 1 >= 4 ? 4 : K - 1 >= 2 ? 2 : 1;   // uniform
+  if (top == 32) walk(Int<32>());
+  else if (top == 16) walk(Int<16>());
+  else if (top == 8) walk(Int<8>());
+  else if (top == 4) walk(Int<4>());
+  else if (top == 2) walk(Int<2>());
+  else walk(Int<1>());
+
+  // first level: the last block of this group sums its partials
+  const int n_groups = a.group0[MAX_TERMS];
+  const int gl = (bx - b0) / GROUP;
+  const int grp = pick(a.group0, ti) + gl;
+  const int gb0 = b0 + gl * GROUP;
+  const int b1 = ti == 0 ? a.block0[1] : ti == 1 ? a.block0[2]
+               : ti == 2 ? a.block0[3] : a.block0[4];   // this term's end
+  const int gend = min(gb0 + GROUP, b1);
+  unsigned int* group_counter =
+      a.counter + gridDim.y + blockIdx.y * n_groups + grp;
+  if (!arrive_last(group_counter, gend - gb0, &is_last)) return;
+  for (int b = c0 + tid; b < c1; b += DENSE_THREADS)
+    a.gpartial[(long long)grp * B + b] =
+        strided_sum(a.partial, gb0, gend, 1, B, b, true);
+
+  // second level: the last group sums every term's group partials
+  if (!arrive_last(a.counter + blockIdx.y, n_groups, &is_last)) return;
+  for (int b = c0 + tid; b < c1; b += DENSE_THREADS)
+    for (int u = 0; u < a.n_terms; ++u)
+      a.sums[(long long)u * B + b] =
+          strided_sum(a.gpartial, a.group0[u], a.group0[u + 1], 1, B, b,
+                      true);
+}
+
+// The dense entry's grid for these terms and B on `device`: fills the
+// launch's block0, group0 and chunk when given; returns the number of
+// x-blocks (n_terms tiles of P pairs), *groups and *chunks (y-blocks), or
+// -1 where the terms or B are out of range: 1..MAX_TERMS terms of one P,
+// 2 <= K <= MAX_K, 16-byte aligned tables, B * P and P * K below 2^31.
+long long dense_grid(const PairTerm* terms, int n_terms, int B, int device,
+                     DenseLaunch* a, long long* groups, long long* chunks) {
+  if (n_terms < 1 || n_terms > MAX_TERMS || B <= 0) return -1;
+  const long long P = terms[0].P;
+  for (int t = 0; t < n_terms; ++t) {
+    const PairTerm& tt = terms[t];
+    if (tt.P != P || P <= 0 || tt.K < 2 || tt.K > MAX_K ||
+        P * B >= 0x7fffffffLL || P * MAX_K >= 0x7fffffffLL ||
+        reinterpret_cast<uintptr_t>(tt.y) % 16 != 0 ||
+        reinterpret_cast<uintptr_t>(tt.m) % 16 != 0)
+      return -1;
+  }
+  const long long tiles = (P + DENSE_TILE - 1) / DENSE_TILE;
+  const long long per_term = (tiles + GROUP - 1) / GROUP;
+  const long long blocks = tiles * n_terms;
+  int sms = 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
+          cudaSuccess || sms <= 0)
+    sms = 1;
+  // split the decoys only as far as the tiles leave resident slots empty
+  const long long slots = (long long)sms * DENSE_BLOCKS_PER_SM;
+  const long long steps = (B + DENSE_BATCH - 1) / DENSE_BATCH;
+  long long split = slots / blocks;
+  split = split < 1 ? 1 : split > steps ? steps : split;
+  const long long chunk = (steps + split - 1) / split * DENSE_BATCH;
+  const long long n_chunks = (B + chunk - 1) / chunk;
+  if (blocks > 0x7fffffffLL || n_chunks > 65535) return -1;
+  if (a) {
+    for (int t = 0; t <= MAX_TERMS; ++t) {
+      const int u = t < n_terms ? t : n_terms;
+      a->block0[t] = (int)(tiles * u);
+      a->group0[t] = (int)(per_term * u);
+    }
+    a->chunk = (int)chunk;
+  }
+  if (groups) *groups = per_term * n_terms;
+  if (chunks) *chunks = n_chunks;
+  return blocks;
+}
+
+// Sizes for these terms and B: the float32 work buffer (sums (n_terms, B),
+// each term's deriv (B, P), the (n_blocks, B) and (n_groups, B) partials)
+// and, in *counters, the launch's counters; -1 where out of range.
+long long dense_buffer(const PairTerm* terms, int n_terms, int B,
+                       int device, long long* counters) {
+  long long groups = 0, chunks = 0;
+  const long long blocks =
+      dense_grid(terms, n_terms, B, device, nullptr, &groups, &chunks);
+  if (blocks < 0) return -1;
+  if (counters) *counters = chunks * (1 + groups);
+  return (long long)n_terms * B * (1 + terms[0].P) + (blocks + groups) * B;
+}
+
+int dense_launch(const PairTerm* terms, int n_terms, const float* const* q,
+                 int B, float* buf, unsigned int* counter, int device,
+                 void* stream) {
+  DenseLaunch a{};
+  long long groups = 0, chunks = 0;
+  const long long blocks =
+      dense_grid(terms, n_terms, B, device, &a, &groups, &chunks);
+  if (blocks < 0) return (int)cudaErrorInvalidValue;
+  int kmax = 0;
+  a.n_terms = n_terms;
+  a.B = B;
+  a.P = (int)terms[0].P;
+  a.sums = buf;
+  float* next = buf + (long long)n_terms * B;
+  for (int t = 0; t < n_terms; ++t) {
+    a.y[t] = terms[t].y;
+    a.m[t] = terms[t].m;
+    a.x[t] = terms[t].x;
+    a.mask[t] = terms[t].act;
+    a.K[t] = terms[t].K;
+    a.q[t] = q[t];
+    a.deriv[t] = next;
+    next += terms[t].P * B;
+    kmax = terms[t].K > kmax ? terms[t].K : kmax;
+  }
+  a.partial = next;
+  a.gpartial = next + blocks * B;
+  a.counter = counter;
+  int current = 0;
+  cudaGetDevice(&current);
+  if (current != device) cudaSetDevice(device);
+  const size_t smem = sizeof(float2) * DENSE_TILE * (kmax | 1);
+  int err = 0;
+  if (smem > 48 * 1024)      // above the default only after opting in
+    err = (int)cudaFuncSetAttribute(
+        spline_dense_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+  if (err == 0) {
+    spline_dense_kernel<<<dim3((unsigned)blocks, (unsigned)chunks),
+                          DENSE_THREADS, smem,
+                          static_cast<cudaStream_t>(stream)>>>(a);
+    err = (int)cudaGetLastError();
+  }
+  if (current != device) cudaSetDevice(current);
+  return err;
+}
+
 }  // namespace
 
 // Plain C entry points, bound from Python with ctypes. All float tensors
 // are contiguous float32, masks are one byte per element (torch.bool).
 // Each launch returns cudaGetLastError() after the launch.
-
-extern "C" int trx2dy_spline_dense_blocks(long long n_pairs) {
-  return (int)((n_pairs + DENSE_THREADS - 1) / DENSE_THREADS);
-}
-
-// `n_blocks` is the caller's width of the (B, n_blocks) partial buffer and
-// must equal the kernel's block count.
-extern "C" int trx2dy_spline_dense(const float* y, const float* m,
-                                   const float* x, int K, const float* q,
-                                   const uint8_t* mask, long long n_pairs,
-                                   int B, float* partial, int n_blocks,
-                                   float* deriv, void* stream) {
-  if (K < 2 || K > MAX_K || B <= 0 || n_pairs <= 0 ||
-      n_blocks != trx2dy_spline_dense_blocks(n_pairs) ||
-      (B + DENSE_DECOYS - 1) / DENSE_DECOYS > 65535)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid(n_blocks, (B + DENSE_DECOYS - 1) / DENSE_DECOYS);
-  spline_dense_kernel<<<grid, DENSE_THREADS, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      y, m, x, K, q, mask, n_pairs, B, partial, deriv);
-  return (int)cudaGetLastError();
-}
 
 // The pair entry's sizes (pairs_buffer) for shared (P_t, K_t) tables.
 extern "C" long long trx2dy_spline_pairs_buffer(const PairTerm* terms,
@@ -631,4 +900,23 @@ extern "C" int trx2dy_spline_lanes(const PairTerm* terms, int n_terms,
                                    void* stream) {
   return pairs_launch(terms, n_terms, q, B, buf, counter, device, stream,
                       true);
+}
+
+// The dense entry: up to four terms of shared (L*L, K_t) tables, each
+// term's y, m (16-byte aligned), x, mask (L*L) in `terms` (act = mask,
+// P = L*L, row null), queries q[t] (B, L*L). Sizes as for the pair entry:
+// the work buffer holds the sums (n_terms, B), then each term's deriv
+// (B, L*L), then the kernel's partials.
+extern "C" long long trx2dy_spline_dense_buffer(const PairTerm* terms,
+                                                int n_terms, int B,
+                                                int device,
+                                                long long* counters) {
+  return dense_buffer(terms, n_terms, B, device, counters);
+}
+
+extern "C" int trx2dy_spline_dense(const PairTerm* terms, int n_terms,
+                                   const float* const* q, int B, float* buf,
+                                   unsigned int* counter, int device,
+                                   void* stream) {
+  return dense_launch(terms, n_terms, q, B, buf, counter, device, stream);
 }

@@ -12,24 +12,31 @@ from typing import Optional
 import torch
 
 
-def resolve_device(device="cuda") -> torch.device:
-    """torch.device for `device`, with float32 products kept exact.
+def pin_float32() -> None:
+    """Keep float32 products exact, process-wide.
 
     The JAX package pins Precision.HIGHEST on its products
     (trx2dy/models/predictor2d.py:41, features.py:52), and reweight's
     identity counts are exact integers only without TF32, so TF32 is
     switched off for matmuls and cuDNN convolutions alike, and bf16
     products (the e2e predictor's bf16 weights) accumulate in float32
-    without reduced-precision reductions.
+    without reduced-precision reductions. Every entry point that resolves
+    its device calls this, and so does models/train.make_train_step.
     """
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """torch.device for `device`, with float32 products kept exact
+    (pin_float32)."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {str(device)!r} requested but CUDA is not available; "
             "pass device='cpu' to run on the CPU")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    pin_float32()
     return dev
 
 

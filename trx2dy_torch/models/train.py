@@ -4,8 +4,9 @@ PyTorch counterpart of trx2dy/models/train.py:
 
   * loss: masked cross-entropy of the four geometry heads against binned
     native geometry (labels from models/dataset.py), summed over the heads;
-  * float32 throughout with TF32 off (device.resolve_device), as the JAX
-    step computes in its float32 params' dtype;
+  * float32 throughout with TF32 off (device.pin_float32, which
+    make_train_step calls), as the JAX step computes in its float32
+    params' dtype;
   * the triangle attention core on the logits path (use_flash=False), as
     JAX's geometry_loss takes it: the CUDA kernel is forward-only;
   * the reference's structured dropout, its masks drawn per step from an
@@ -37,6 +38,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from trx2dy_torch.device import pin_float32
 from trx2dy_torch.models.predictor2d import draw_dropout
 from trx2dy_torch.parallel.mesh import (
     all_reduce_, axis, replicated, shard, shard_batch, shard_msa,
@@ -210,7 +212,10 @@ def make_train_step(optimizer: Optimizer, mesh=None,
     inputs' device; remat=True rematerialises each trunk block. mesh: a
     (dp, mp) DeviceMesh (parallel/mesh.py); every rank passes the global
     batch and gets the global loss (see the module's docstring). The
-    first step checks that the ranks hold the same parameters."""
+    first step checks that the ranks hold the same parameters. Building
+    the step switches TF32 off (pin_float32), whatever device it runs
+    on."""
+    pin_float32()
 
     def step_fn(state: TrainState, f2d, msa, labels, mask):
         if mesh is not None and state.step == 0:

@@ -7,9 +7,14 @@ natural-cubic spline over its queries and returns dE/dq in the same pass,
 so each wrapper is an autograd Function whose backward is `g * deriv`.
 Three entry points:
 
-  spline_energy_dense(y, m, x, q, mask)  y, m (L, L, K); q (B, L, L);
-      mask (L, L) bool -> (B,). The TPU kernel's layout
-      (spline_energy_batch), run by energy.batched_energy_fused.
+  spline_energy_dense_terms(tables, qs)  tables: SplineDense of up to four
+      terms, each y, m (L, L, K_t), x (K_t,), mask (L, L) bool; qs: one
+      (B, L, L) query tensor per term -> (n_terms, B), one launch for all
+      terms. The TPU kernel's layout (spline_energy_batch), run by
+      energy.batched_energy_dense (the single-program fold's evaluation)
+      and batched_energy_fused; restraints.dense_splines builds the
+      SplineDense once per stage. spline_energy_dense(y, m, x, q, mask) is
+      its one-term call (B,).
   spline_energy_pairs(tables, qs)        tables: SplinePairs of up to four
       terms, each y, m (P_t, K_t), x (K_t,), act (P_t,) bool; qs: one
       (P_t, B) query tensor per term -> (n_terms, B), one launch for all
@@ -34,8 +39,9 @@ Three entry points:
 Knots have K <= 64 and tensors are float32 on the card. A CPU tensor takes
 the plain version (the port of spline.evaluate_spline_with_deriv or
 _eval_with_deriv_pb); a CUDA tensor launches the kernel or raises.
-`spline_energy_dense.launches`, `spline_energy_pairs.launches` and
-`spline_energy_lanes.launches` count kernel launches.
+`spline_energy_dense.launches` (the dense entry, both calls),
+`spline_energy_pairs.launches` and `spline_energy_lanes.launches` count
+kernel launches.
 """
 from __future__ import annotations
 
@@ -58,6 +64,15 @@ def spline_dense_plain(y, m, x, q, mask):
     zero = torch.zeros((), dtype=q.dtype, device=q.device)
     return (torch.sum(torch.where(mask, val, zero), dim=(1, 2)),
             torch.where(mask, der, zero))
+
+
+def spline_dense_terms_plain(terms, qs):
+    """(per-decoy masked sums (n_terms, B), each term's masked deriv
+    (B, L, L)) in PyTorch: spline_dense_plain per term; terms holds
+    (y, m, x, mask) per term."""
+    out = [spline_dense_plain(y, m, x, q, mask)
+           for (y, m, x, mask), q in zip(terms, qs)]
+    return torch.stack([o[0] for o in out]), tuple(o[1] for o in out)
 
 
 def spline_pairs_plain(terms, qs):
@@ -131,66 +146,70 @@ def _lib():
     lib = _build.load("spline_energy")
     if lib.trx2dy_spline_dense.argtypes is None:
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.trx2dy_spline_dense.argtypes = [vp, vp, vp, i, vp, vp, ll, i,
-                                            vp, i, vp, vp]
-        lib.trx2dy_spline_dense_blocks.argtypes = [ll]
-        lib.trx2dy_spline_pairs_buffer.argtypes = [vp, i, i, i, vp]
-        lib.trx2dy_spline_pairs.argtypes = [vp, i, vp, i, vp, vp, i, vp]
-        lib.trx2dy_spline_lanes_buffer.argtypes = [vp, i, i, i, vp]
-        lib.trx2dy_spline_lanes.argtypes = [vp, i, vp, i, vp, vp, i, vp]
-        for fn in (lib.trx2dy_spline_dense, lib.trx2dy_spline_dense_blocks,
-                   lib.trx2dy_spline_pairs, lib.trx2dy_spline_lanes):
-            fn.restype = ctypes.c_int
-        lib.trx2dy_spline_pairs_buffer.restype = ll
-        lib.trx2dy_spline_lanes_buffer.restype = ll
+        for entry in ("dense", "pairs", "lanes"):
+            size = getattr(lib, f"trx2dy_spline_{entry}_buffer")
+            size.argtypes, size.restype = [vp, i, i, i, vp], ll
+            launch = getattr(lib, f"trx2dy_spline_{entry}")
+            launch.argtypes = [vp, i, vp, i, vp, vp, i, vp]
+            launch.restype = ctypes.c_int
     return lib
 
 
 def _check_tables(terms, entry: str = "spline_energy_pairs",
-                  lanes: bool = False) -> None:
+                  kind: str = "pairs") -> None:
     """Raise ValueError unless `terms` are 1..MAX_TERMS tuples that the
     entry takes, all contiguous and on one device, of the knots' floating
     dtype (float32 on a CUDA device): knots x (K,) with 2 <= K <= MAX_K;
     for the pair entry (y, m, x, act) with tables y, m (P, K) and act (P,)
-    bool; with lanes (tab, row, x, act) with a 16-byte aligned interval
-    table tab (P, U, K-1, 4), a lane -> row map row (C,) int32 and act
-    (P, C) bool, one C for all terms. The map's values must lie in
-    [0, U): tablegen.compile and compact.union_take_lanes make it so, and
-    reading it here would cost a host sync."""
+    bool; for the lanes entry (tab, row, x, act) with a 16-byte aligned
+    interval table tab (P, U, K-1, 4), a lane -> row map row (C,) int32 and
+    act (P, C) bool, one C for all terms; for the dense entry (y, m, x,
+    mask) with tables y, m (L, L, K), 16-byte aligned on a CUDA device, and
+    mask (L, L) bool, one L for all terms. The lanes map's values must lie
+    in [0, U): tablegen.compile and compact.union_take_lanes make it so,
+    and reading it here would cost a host sync."""
     if not 1 <= len(terms) <= MAX_TERMS:
         raise ValueError(f"{entry}: 1 to {MAX_TERMS} terms, "
                          f"got {len(terms)}")
     dev = terms[0][0].device
+    lanes, dense = kind == "lanes", kind == "dense"
     C = terms[0][1].shape[0] if lanes and terms[0][1].dim() == 1 else 0
+    L = terms[0][3].shape[0] if dense and terms[0][3].dim() == 2 else 0
     for n, (a, b, x, act) in enumerate(terms):
         name = f"{entry} term {n}"
         K = x.shape[0] if x.dim() == 1 else -1
         if not 2 <= K <= MAX_K:
             raise ValueError(f"{name}: knots must be (K,) with 2 <= K <= "
                              f"{MAX_K}, got {tuple(x.shape)}")
+        aname = "mask" if dense else "act"
         if lanes:
             P = a.shape[0] if a.dim() == 4 else 0
             U = a.shape[1] if a.dim() == 4 else 0
             shapes = (("tab", a, (P, U, K - 1, 4)), ("row", b, (C,)),
                       ("act", act, (P, C)))
             dtypes = (("tab", a, x.dtype), ("row", b, torch.int32))
+            ok = P >= 1 and U >= 1 and C >= 1
+        elif dense:
+            shapes = (("y", a, (L, L, K)), ("m", b, (L, L, K)),
+                      ("mask", act, (L, L)))
+            dtypes = (("y", a, x.dtype), ("m", b, x.dtype))
+            ok = L >= 1
         else:
             P = a.shape[0] if a.dim() == 2 else 0
-            U = 1
             shapes = (("y", a, (P, K)), ("m", b, (P, K)), ("act", act, (P,)))
             dtypes = (("y", a, x.dtype), ("m", b, x.dtype))
+            ok = P >= 1
         for tname, t, shape in shapes:
-            if P < 1 or U < 1 or (lanes and C < 1) or \
-                    tuple(t.shape) != shape:
+            if not ok or tuple(t.shape) != shape:
                 raise ValueError(f"{name}: {tname} must be {shape} with "
-                                 f"P, U, C >= 1, got {tuple(t.shape)}")
-        ok = (torch.float32,) if dev.type == "cuda" else (torch.float32,
-                                                          torch.float64)
-        if x.dtype not in ok:
-            raise ValueError(f"{name}: tables must be one of {ok} on {dev}, "
-                             f"got {x.dtype}")
+                                 f"P, U, C, L >= 1, got {tuple(t.shape)}")
+        floats = (torch.float32,) if dev.type == "cuda" else (
+            torch.float32, torch.float64)
+        if x.dtype not in floats:
+            raise ValueError(f"{name}: tables must be one of {floats} on "
+                             f"{dev}, got {x.dtype}")
         for tname, t, want in dtypes + (("x", x, x.dtype),
-                                        ("act", act, torch.bool)):
+                                        (aname, act, torch.bool)):
             if t.device != dev or t.dtype != want:
                 raise ValueError(f"{name}: {tname} must be {want} on {dev}, "
                                  f"got {t.dtype} on {t.device}")
@@ -199,6 +218,10 @@ def _check_tables(terms, entry: str = "spline_energy_pairs",
         if lanes and a.data_ptr() % 16:
             raise ValueError(f"{name}: tab must be 16-byte aligned (one "
                              "float4 per interval)")
+        if dense and dev.type == "cuda" and (a.data_ptr() % 16
+                                             or b.data_ptr() % 16):
+            raise ValueError(f"{name}: y and m must be 16-byte aligned "
+                             "(four floats per load)")
 
 
 class SplinePairs:
@@ -207,17 +230,25 @@ class SplinePairs:
     each evaluation checks only its queries."""
 
     entry = "spline_energy_pairs"
-    lanes = False
+    kind = "pairs"        # the C functions trx2dy_spline_<kind>[_buffer]
 
     def __init__(self, terms):
         terms = tuple(tuple(t) for t in terms)
-        _check_tables(terms, self.entry, self.lanes)
+        _check_tables(terms, self.entry, self.kind)
         self.terms = terms
         self.device = terms[0][0].device
-        self.sizes = tuple(y.shape[0] for y, _, _, _ in terms)
+        self.sizes = tuple(y.shape[0] for y, _, _, _ in terms)   # P_t
         self._c = None        # ctypes PairTerm array, at the first launch
         self._qptrs = None    # ctypes array of the query pointers
         self._layout = {}     # B -> (work buffer's part sizes, counters)
+
+    def _batch(self, qs) -> int:
+        """B of these queries (the lanes entry's C)."""
+        return qs[0].shape[-1]
+
+    def _query_shape(self, P: int, B: int) -> tuple:
+        """Each query's and deriv's shape for a term of P pairs."""
+        return (P, B)
 
     def _launch_constants(self, lib):
         if self._c is None:
@@ -237,8 +268,7 @@ class SplinePairs:
         layout = self._layout.get(B)
         if layout is None:
             counters = ctypes.c_longlong()
-            size = lib.trx2dy_spline_lanes_buffer if self.lanes \
-                else lib.trx2dy_spline_pairs_buffer
+            size = getattr(lib, f"trx2dy_spline_{self.kind}_buffer")
             n = size(self._launch_constants(lib), len(self.terms), B,
                      self.device.index, ctypes.byref(counters))
             if n < 0:
@@ -257,11 +287,14 @@ class SplineLanes(SplinePairs):
     have C lanes."""
 
     entry = "spline_energy_lanes"
-    lanes = True
+    kind = "lanes"
 
     def __init__(self, terms):
         super().__init__(terms)
         self.n_lanes = self.terms[0][1].shape[0]
+
+    def _batch(self, qs) -> int:
+        return self.n_lanes
 
     @staticmethod
     def _pair_term(tab, row, x, act):
@@ -270,7 +303,33 @@ class SplineLanes(SplinePairs):
                          tab.shape[1])
 
 
-_counters: dict = {}    # device index -> the pair entry's counters
+class SplineDense(SplinePairs):
+    """The stage constants of the dense entry: per term (y, m, x, mask),
+    shared tables y, m (L, L, K_t), knots x (K_t,) and mask (L, L) bool,
+    checked once when built (restraints.dense_splines builds one per stage
+    of the single-program fold). Its queries are (B, L, L)."""
+
+    entry = "spline_energy_dense"
+    kind = "dense"
+
+    def __init__(self, terms):
+        super().__init__(terms)
+        self.L = self.terms[0][3].shape[0]
+        self.sizes = (self.L * self.L,) * len(self.terms)
+
+    @staticmethod
+    def _pair_term(y, m, x, mask):
+        return _PairTerm(y.data_ptr(), m.data_ptr(), x.data_ptr(),
+                         mask.data_ptr(), None, mask.numel(), x.shape[0], 0)
+
+    def _batch(self, qs) -> int:
+        return qs[0].shape[0] if qs[0].dim() == 3 else -1
+
+    def _query_shape(self, P: int, B: int) -> tuple:
+        return (B, self.L, self.L)
+
+
+_counters: dict = {}    # device index -> the launches' counters
 
 
 def _counter(dev, n: int) -> torch.Tensor:
@@ -284,13 +343,13 @@ def _counter(dev, n: int) -> torch.Tensor:
 
 
 def _check_queries(tables: SplinePairs, qs) -> int:
-    """The per-evaluation checks of the pair and lanes entries; returns B
-    (the lanes entry's C)."""
+    """The per-evaluation checks of the dense, pair and lanes entries;
+    returns B (the lanes entry's C)."""
     entry = tables.entry
     if len(qs) != len(tables.terms):
         raise ValueError(f"{entry}: {len(qs)} query tensors for "
                          f"{len(tables.terms)} terms")
-    B = tables.n_lanes if tables.lanes else qs[0].shape[-1]
+    B = tables._batch(qs)
     for n, (q, P) in enumerate(zip(qs, tables.sizes)):
         if q.device.type != "cuda":
             raise ValueError(f"{entry}: tensors must be on a CUDA device, "
@@ -299,71 +358,16 @@ def _check_queries(tables: SplinePairs, qs) -> int:
             raise ValueError(f"{entry}: q[{n}] must be float32 on "
                              f"{tables.device}, got {q.dtype} on "
                              f"{q.device}")
-        if q.shape != (P, B) or not q.is_contiguous():
+        shape = tables._query_shape(P, B)
+        if B < 1 or q.shape != shape or not q.is_contiguous():
             raise ValueError(f"{entry}: q[{n}] must be a contiguous "
-                             f"({P}, {B}), got {tuple(q.shape)}")
+                             f"{shape}, got {tuple(q.shape)}")
     return B
 
 
-def _check(name, y, m, x, q, mask, table_shape, mask_shape):
-    dev = q.device
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: tensors must be on a CUDA device, "
-                         f"got {dev}")
-    K = x.shape[0] if x.dim() == 1 else -1
-    if not 2 <= K <= MAX_K:
-        raise ValueError(f"{name}: knots must be (K,) with 2 <= K <= "
-                         f"{MAX_K}, got {tuple(x.shape)}")
-    for tname, t, shape in (("y", y, table_shape + (K,)),
-                            ("m", m, table_shape + (K,)), ("x", x, (K,)),
-                            ("mask", mask, mask_shape)):
-        want = torch.bool if tname == "mask" else torch.float32
-        if t.device != dev or t.dtype != want:
-            raise ValueError(f"{name}: {tname} must be {want} on {dev}, got "
-                             f"{t.dtype} on {t.device}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name}: {tname} must be {shape}, got "
-                             f"{tuple(t.shape)}")
-    if q.dtype != torch.float32:
-        raise ValueError(f"{name}: q must be float32, got {q.dtype}")
-    for tname, t in (("y", y), ("m", m), ("x", x), ("q", q), ("mask", mask)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {tname} must be contiguous")
-
-
-def _launch(name, fn, args, B, n_blocks, q):
-    """Allocate the (B, n_blocks) partials and the deriv, launch on the
-    current stream, and return (partials summed per decoy, deriv)."""
-    partial = torch.empty((B, n_blocks), dtype=torch.float32, device=q.device)
-    deriv = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(*args, B, partial.data_ptr(), n_blocks,
-                 deriv.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-    return partial.sum(dim=1), deriv
-
-
-def _dense_fwd(y, m, x, q, mask):
-    if q.device.type == "cpu":
-        return spline_dense_plain(y, m, x, q, mask)
-    B, L, _ = q.shape
-    _check("spline_energy_dense", y, m, x, q, mask, (L, L), (L, L))
-    lib = _lib()
-    n_pairs = L * L
-    n_blocks = lib.trx2dy_spline_dense_blocks(n_pairs)
-    out = _launch("spline_energy_dense", lib.trx2dy_spline_dense,
-                  (y.data_ptr(), m.data_ptr(), x.data_ptr(), x.shape[0],
-                   q.data_ptr(), mask.data_ptr(), n_pairs),
-                  B, n_blocks, q)
-    spline_energy_dense.launches += 1
-    return out
-
-
 def _fused_launch(tables: SplinePairs, qs):
-    """One launch of the pair or lanes entry on CUDA tensors: (sums
-    (n_terms, B), each term's deriv (P_t, B))."""
+    """One launch of the dense, pair or lanes entry on CUDA tensors: (sums
+    (n_terms, B), each term's deriv in its query's shape)."""
     B = _check_queries(tables, qs)
     lib = _lib()
     parts, n_counters = tables._parts(lib, B)
@@ -372,8 +376,7 @@ def _fused_launch(tables: SplinePairs, qs):
     qptrs = tables._qptrs
     for n, q in enumerate(qs):
         qptrs[n] = q.data_ptr()
-    launch = lib.trx2dy_spline_lanes if tables.lanes \
-        else lib.trx2dy_spline_pairs
+    launch = getattr(lib, f"trx2dy_spline_{tables.kind}")
     err = launch(tables._c, len(qs), qptrs, B, buf.data_ptr(),
                  _counter(dev, n_counters).data_ptr(), dev.index,
                  torch.cuda.current_stream(dev).cuda_stream)
@@ -382,7 +385,17 @@ def _fused_launch(tables: SplinePairs, qs):
                            f"cudaError {err}")
     sums, *derivs = buf.split(parts)[:-1]
     return sums.view(len(qs), B), tuple(
-        d.view(P, B) for d, P in zip(derivs, tables.sizes))
+        d.view(tables._query_shape(P, B))
+        for d, P in zip(derivs, tables.sizes))
+
+
+def _dense_fwd(tables: SplineDense, qs):
+    """(sums (n_terms, B), each term's deriv (B, L, L)): one launch."""
+    if qs[0].device.type == "cpu":
+        return spline_dense_terms_plain(tables.terms, qs)
+    out = _fused_launch(tables, qs)
+    spline_energy_dense.launches += 1
+    return out
 
 
 def _pairs_fwd(tables: SplinePairs, qs):
@@ -405,15 +418,15 @@ def _lanes_fwd(tables: SplineLanes, qs):
 
 class _Dense(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, y, m, x, q, mask):
-        sums, deriv = _dense_fwd(y, m, x, q, mask)
-        ctx.save_for_backward(deriv)
+    def forward(ctx, tables, *qs):
+        sums, derivs = _dense_fwd(tables, qs)
+        ctx.save_for_backward(*derivs)
         return sums
 
     @staticmethod
     def backward(ctx, g):
-        (deriv,) = ctx.saved_tensors
-        return None, None, None, g[:, None, None] * deriv, None
+        return (None, *(gt[:, None, None] * d
+                        for gt, d in zip(g.unbind(0), ctx.saved_tensors)))
 
 
 class _Pairs(torch.autograd.Function):
@@ -442,10 +455,17 @@ class _Lanes(torch.autograd.Function):
                                                 ctx.saved_tensors)))
 
 
+def spline_energy_dense_terms(tables: SplineDense, qs) -> torch.Tensor:
+    """(n_terms, B) masked spline energies of the queries qs (one
+    (B, L, L) tensor per term of `tables`) over shared tables, one launch
+    for all terms; differentiable in every q."""
+    return _Dense.apply(tables, *qs)
+
+
 def spline_energy_dense(y, m, x, q, mask):
     """(B,) masked spline energies of q (B, L, L) over shared (L, L, K)
-    tables; differentiable in q."""
-    return _Dense.apply(y, m, x, q, mask)
+    tables: the dense entry with one term; differentiable in q."""
+    return spline_energy_dense_terms(SplineDense([(y, m, x, mask)]), [q])[0]
 
 
 def spline_energy_pairs(tables: SplinePairs, qs) -> torch.Tensor:

@@ -19,10 +19,11 @@ spline kernel's pair entry, one launch per evaluation), a shared pair list
 with per-lane tables ("union", a compact.UnionStage, through the kernel's
 lanes entry, one launch per evaluation; cartesian_refine_lanes), or dense
 tables and masks ("dense", the reference the tests hold the compact kind
-to, through the kernel's dense entry). The union kind serves both chain
-folds: the sampler's tables built on the device and the host chain fold's
-per-lane tables (JAX's "lanes" kind, CompactLanes), which
-compact.compact_restraints_lanes builds as a UnionStage.
+to, through the kernel's dense entry, one launch per evaluation). The
+union kind serves both chain folds: the sampler's tables built on the
+device and the host chain fold's per-lane tables (JAX's "lanes" kind,
+CompactLanes), which compact.compact_restraints_lanes builds as a
+UnionStage.
 """
 from __future__ import annotations
 
@@ -36,7 +37,9 @@ from trx2dy_torch.geometry.nerf import (
     BOND_C_O, BOND_CA_C, BOND_N_CA,
 )
 from trx2dy_torch.geometry.transforms import backbone_torsions, virtual_cb
-from trx2dy_torch.ops.spline_energy import spline_energy_dense
+from trx2dy_torch.ops.spline_energy import (
+    SplineDense, spline_energy_dense_terms,
+)
 from trx2dy_torch.physics.compact import (
     CompactRestraints, UnionStage, compact_restraint_energy_batch,
     compact_restraint_energy_union,
@@ -48,7 +51,7 @@ from trx2dy_torch.physics.energy import (
 from trx2dy_torch.physics.minimize import (
     STATS, host_all, lbfgs_init, lbfgs_minimize, lbfgs_run,
 )
-from trx2dy_torch.physics.restraints import masks_to, tables_to
+from trx2dy_torch.physics.restraints import dense_splines, masks_to, tables_to
 
 _ATOMS = ("N", "CA", "C", "O", "CB")
 
@@ -114,24 +117,18 @@ def atoms_energy(atoms: dict, rst, masks, w: EnergyWeights, res_mask=None):
     tables and masks as tensors (restraints.tables_to / masks_to)."""
     wd = {f: getattr(w, f) for f in WEIGHT_FIELDS}
     return _centroid_terms(atoms, wd, res_mask) + _dense_restraints(
-        atoms, rst, masks, wd)
+        atoms, dense_splines(rst, masks), wd)
 
 
-def _dense_restraints(atoms_b, rst, masks, w):
+def _dense_restraints(atoms_b, splines, w):
     """(B,) restraint energies of atoms (B, L, 3) over dense tables, the
-    four terms through the spline kernel's dense entry."""
+    four terms in one launch of the spline kernel's dense entry; splines:
+    their SplineDense (restraints.dense_splines)."""
     g = pairwise_geometry(atoms_b)
-    e = 0.0
-    for wt, table, q, mask in ((w["atom_pair"], rst.dist, g["dist"],
-                                masks.dist),
-                               (w["dihedral"], rst.omega, g["omega"],
-                                masks.omega),
-                               (w["dihedral"], rst.theta, g["theta"],
-                                masks.theta),
-                               (w["angle"], rst.phi, g["phi"], masks.phi)):
-        e = e + wt * spline_energy_dense(table.y, table.m, table.x,
-                                         q.contiguous(), mask)
-    return e
+    s = spline_energy_dense_terms(splines, [
+        g[k].contiguous() for k in ("dist", "omega", "theta", "phi")])
+    return w["atom_pair"] * s[0] + w["dihedral"] * s[1] \
+        + w["dihedral"] * s[2] + w["angle"] * s[3]
 
 
 def _delta_unpack(atoms0: dict, delta):
@@ -148,13 +145,16 @@ def _cart_efun(atoms0: dict, tables, w_vec, kind: str,
     CompactRestraints on the device (compact.compact_to); "union", or JAX's
     name "lanes" for the host chain fold's: a compact.UnionStage (per-lane
     tables, B = the stage's lanes); "dense":
-    tables (rst, masks) as tensors (restraints.tables_to / masks_to), whose
-    distance is CB-CB whatever dist_on_ca says, as in JAX."""
+    tables (rst, masks) as tensors (restraints.tables_to / masks_to) or
+    their SplineDense (restraints.dense_splines), whose distance is CB-CB
+    whatever dist_on_ca says, as in JAX."""
     w = dict(zip(WEIGHT_FIELDS, w_vec))
+    if kind == "dense":
+        tables = _splines(tables)
 
     def restraints_b(atoms_b):
         if kind == "dense":
-            return _dense_restraints(atoms_b, *tables, w)
+            return _dense_restraints(atoms_b, tables, w)
         if kind == "compact":
             return compact_restraint_energy_batch(
                 atoms_b, tables, w["atom_pair"], w["dihedral"], w["angle"],
@@ -215,6 +215,12 @@ def _table_kind(tables) -> str:
     return "dense"
 
 
+def _splines(tables) -> SplineDense:
+    """The dense kind's tables as a SplineDense, built once per stage."""
+    return tables if isinstance(tables, SplineDense) else \
+        dense_splines(*tables)
+
+
 def _zero_delta(atoms):
     B, L, _ = atoms["N"].shape
     return torch.zeros((B, len(_ATOMS) * L * 3), dtype=atoms["CA"].dtype,
@@ -238,13 +244,15 @@ def cartesian_relax_block(atoms: dict, tables, w_stages, w_full_vec,
     iters), ...) carrying the displacement vector, in chunks of CART_CHUNK
     iterations, then accept_to_best against the starting pose under the
     full weights (1relax_round1.txt:10-16 `switch:cartesian repeat 1`).
-    tables: a device CompactRestraints, a compact.UnionStage or dense
-    (rst, masks) tensors.
+    tables: a device CompactRestraints, a compact.UnionStage, or dense
+    (rst, masks) tensors or their SplineDense.
 
     Returns (atoms dict, (B,) full-weight energies of the kept pose). The
     accept_to_best choice stays on the device. stage_log, if given,
     receives ("cart_r1", iterations, wall_s) per ramp stage."""
     kind = _table_kind(tables)
+    if kind == "dense":
+        tables = _splines(tables)
     delta = _zero_delta(atoms)
     like = atoms["CA"]
 
@@ -293,7 +301,8 @@ def cartesian_refine(atoms: dict, rst, masks, w: EnergyWeights,
     atoms' device. Returns (refined atoms, (B,) final energies with
     cart_bonded)."""
     dev, dt = atoms["CA"].device, atoms["CA"].dtype
-    return _refine(atoms, (tables_to(rst, dev, dt), masks_to(masks, dev)),
+    return _refine(atoms, dense_splines(tables_to(rst, dev, dt),
+                                        masks_to(masks, dev)),
                    weights_to_vec(w), max_iter, res_mask=res_mask)
 
 

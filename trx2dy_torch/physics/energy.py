@@ -21,11 +21,11 @@ import torch
 
 from trx2dy_torch.geometry.nerf import build_backbone
 from trx2dy_torch.geometry.transforms import bond_angle, dihedral
-from trx2dy_torch.ops.spline_energy import spline_energy_dense
+from trx2dy_torch.ops.spline_energy import spline_energy_dense_terms
 from trx2dy_torch.physics.compact import (
     compact_restraint_energy_batch, compact_restraint_energy_union,
 )
-from trx2dy_torch.physics.restraints import restraint_energy
+from trx2dy_torch.physics.restraints import dense_splines, restraint_energy
 
 
 class EnergyWeights(NamedTuple):
@@ -324,21 +324,24 @@ def pose_base_and_geometry(torsions, w_vec, dist_on_ca: bool = False,
     return e, dist, g["omega"], g["theta"], g["phi"]
 
 
+def batched_energy_dense(x, splines, w_vec, dist_on_ca: bool = False,
+                         res_mask=None) -> torch.Tensor:
+    """(B, 3L) -> (B,) energies over shared dense tables, the four
+    restraint terms in one launch of the spline kernel's dense entry;
+    splines: their SplineDense (restraints.dense_splines, built once per
+    stage). With res_mask, the dense pose_energy batch of JAX's
+    single-program fold."""
+    t = x.reshape(x.shape[0], 3, -1)
+    e, *qs = pose_base_and_geometry(t, w_vec, dist_on_ca, res_mask)
+    w = _weights(w_vec)
+    s = spline_energy_dense_terms(splines, [q.contiguous() for q in qs])
+    return e + w["atom_pair"] * s[0] + w["dihedral"] * s[1] \
+        + w["dihedral"] * s[2] + w["angle"] * s[3]
+
+
 def batched_energy_fused(x, rst, masks, w_vec, dist_on_ca: bool = False,
                          res_mask=None) -> torch.Tensor:
-    """(B, 3L) -> (B,) energies with shared dense tables, the restraint
-    terms through the spline kernel's dense entry, four launches (the JAX
-    package's batched_energy_fused; with res_mask, the dense pose_energy
-    batch of its single-program fold). rst/masks as tensors (tables_to /
-    masks_to)."""
-    t = x.reshape(x.shape[0], 3, -1)
-    e, qd, qo, qt, qp = pose_base_and_geometry(t, w_vec, dist_on_ca,
-                                               res_mask)
-    w = _weights(w_vec)
-    for wt, table, q, mask in ((w["atom_pair"], rst.dist, qd, masks.dist),
-                               (w["dihedral"], rst.omega, qo, masks.omega),
-                               (w["dihedral"], rst.theta, qt, masks.theta),
-                               (w["angle"], rst.phi, qp, masks.phi)):
-        e = e + wt * spline_energy_dense(table.y, table.m, table.x,
-                                         q.contiguous(), mask)
-    return e
+    """The JAX package's batched_energy_fused: batched_energy_dense over
+    rst/masks as tensors (tables_to / masks_to)."""
+    return batched_energy_dense(x, dense_splines(rst, masks), w_vec,
+                                dist_on_ca, res_mask)

@@ -43,8 +43,9 @@ fold_ensemble(staged_execution=False) runs JAX's single-program protocol
 shared tables, each stage one L-BFGS run of the whole batch, with no
 chunks and no lane repacking, the round-1 cartesian block on the dense
 cartesian energy. Every torsion-space evaluation is
-energy.batched_energy_fused, whose restraint terms launch the spline
-kernel's dense entry (the TPU kernel's own layout) four times.
+energy.batched_energy_dense, whose four restraint terms launch the spline
+kernel's dense entry (the TPU kernel's own layout) once, over a
+SplineDense built once per set of stage masks (restraints.dense_splines).
 
 REPACK_IN_LOOP (off, as in JAX) switches fold_ensemble's relax round 2 to
 the in-loop repack stage (fa_stage, folder.py:684-713): each ramp stage
@@ -80,7 +81,7 @@ from trx2dy_torch.physics.compact import (
 )
 from trx2dy_torch.physics.energy import (
     SCOREFXN1, SCOREFXN_CART, SCOREFXN_CENT, SCOREFXN_VDW, EnergyWeights,
-    batched_energy_fused, batched_energy_weighted_compact,
+    batched_energy_dense, batched_energy_weighted_compact,
     batched_energy_weighted_union, weights_to_vec,
 )
 from trx2dy_torch.physics.minimize import (
@@ -90,8 +91,8 @@ from trx2dy_torch.physics.minimize import (
 from trx2dy_torch.physics.restraints import (
     FoldParams, RestraintMasks, RestraintSet, add_disulfide_restraints,
     compile_restraints, compile_restraints_af2, compile_restraints_gpcr,
-    compile_restraints_idp, disulfide_pairs, masks_to, restraint_masks,
-    tables_to,
+    compile_restraints_idp, dense_splines, disulfide_pairs, masks_to,
+    restraint_masks, tables_to,
 )
 from trx2dy_torch.physics import sidechain
 
@@ -440,13 +441,14 @@ def _protocol_staged(x0, stages, max_iter: int, dist_on_ca: bool = False,
     return x, f
 
 
-def _dense_energy(rst, masks, w_vec, dist_on_ca: bool = False,
+def _dense_energy(splines, w_vec, dist_on_ca: bool = False,
                   res_mask=None):
-    """JAX's _batch_energy: (B, 3L) torsions -> (B,) energies over the
-    dense shared tables rst (restraints.tables_to) and masks (masks_to),
-    the weights w_vec a (9,) tensor on their device."""
+    """JAX's _batch_energy: (B, 3L) torsions -> (B,) energies over one
+    stage's dense shared tables and masks as a SplineDense
+    (restraints.dense_splines), the weights w_vec a (9,) tensor on their
+    device."""
     def fun(xx):
-        return batched_energy_fused(xx, rst, masks, w_vec, dist_on_ca,
+        return batched_energy_dense(xx, splines, w_vec, dist_on_ca,
                                     res_mask)
     return fun
 
@@ -459,60 +461,64 @@ def _protocol_single(x0, rst, stages, max_iter: int, dist_on_ca=False,
     FastRelax rounds (accept-to-best) with the round-1 cartesian block
     between them when cart_r1, then the final centroid energy. rst: dense
     tables (restraints.tables_to); stages, relax1, relax2: dense masks
-    (restraints.masks_to). Each stage is one lbfgs_minimize of the whole
-    batch; every evaluation is batched_energy_fused. Returns (x, final
-    centroid energies)."""
+    (restraints.masks_to), each made a SplineDense once here. Each stage
+    is one lbfgs_minimize of the whole batch; every evaluation is
+    batched_energy_dense, one dense launch. Returns (x, final centroid
+    energies)."""
     dev = x0.device
     B = x0.shape[0]
+    empty = dense_splines(rst, RestraintMasks(
+        *(torch.zeros_like(m) for m in stages[0])))
+    stages = [dense_splines(rst, m) for m in stages]
+    if relax is not None:
+        relax = tuple(dense_splines(rst, m) for m in relax)
 
-    def energy(w, masks):
-        return _dense_energy(rst, masks, torch.as_tensor(
+    def energy(w, spl):
+        return _dense_energy(spl, torch.as_tensor(
             weights_to_vec(w), device=dev), dist_on_ca, res_mask)
 
-    def score(w, masks, x):
+    def score(w, spl, x):
         # one counted value-and-gradient evaluation, every lane frozen
-        return lbfgs_init(energy(w, masks), x,
+        return lbfgs_init(energy(w, spl), x,
                           freeze=torch.ones((B,), dtype=torch.bool,
                                             device=dev)).f
 
-    def minimize(x, w, masks, iters, label, freeze=None):
+    def minimize(x, w, spl, iters, label, freeze=None):
         t0 = time.perf_counter()
-        res = lbfgs_minimize(energy(w, masks), x, max_iter=iters,
+        res = lbfgs_minimize(energy(w, spl), x, max_iter=iters,
                              freeze=freeze)
         if stage_log is not None:
             stage_log.append((label, res.n_iter,
                               round(time.perf_counter() - t0, 3)))
         return res.x
 
-    empty = RestraintMasks(*(torch.zeros_like(m) for m in stages[0]))
-
-    def remove_clash(x, w, masks, iters, label):
+    def remove_clash(x, w, spl, iters, label):
         # CLASH_ROUNDS rounds, the decoys whose vdw score reaches the
         # cutoff minimising; a round with none left changes nothing
         for _ in range(CLASH_ROUNDS):
             active = score(SCOREFXN_VDW, empty, x) >= CLASH_SCORE_CUTOFF
             if not host_numpy(active).any():
                 break
-            x = minimize(x, w, masks, iters, label, freeze=~active)
+            x = minimize(x, w, spl, iters, label, freeze=~active)
         return x
 
     x = remove_clash(x0, SCOREFXN_VDW, empty, 500, "clash0")
-    for masks in stages:
+    for spl in stages:
         for _ in range(3):                      # RepeatMover(min_mover, 3)
-            x = minimize(x, SCOREFXN_CENT, masks, max_iter, "cent")
-        x = minimize(x, SCOREFXN_CART, masks, max_iter, "cart")
-        x = remove_clash(x, SCOREFXN1, masks, max_iter, "clash")
+            x = minimize(x, SCOREFXN_CENT, spl, max_iter, "cent")
+        x = minimize(x, SCOREFXN_CART, spl, max_iter, "cart")
+        x = remove_clash(x, SCOREFXN1, spl, max_iter, "clash")
 
     if relax is not None:
         relax1, relax2 = relax
 
-        def relax_round(x, masks, schedule, label):
-            best_x, best_f = x, score(SCOREFXN_RELAX, masks, x)
+        def relax_round(x, spl, schedule, label):
+            best_x, best_f = x, score(SCOREFXN_RELAX, spl, x)
             for _ in range(RELAX_REPEATS):
                 for fa, cst, iters in schedule:
-                    x = minimize(x, _ramped_relax_weights(fa, cst), masks,
+                    x = minimize(x, _ramped_relax_weights(fa, cst), spl,
                                  iters, label)
-                f = score(SCOREFXN_RELAX, masks, x)        # accept_to_best
+                f = score(SCOREFXN_RELAX, spl, x)        # accept_to_best
                 best_x = torch.where((f < best_f)[:, None], x, best_x)
                 best_f = torch.minimum(f, best_f)
             return best_x
@@ -523,7 +529,7 @@ def _protocol_single(x0, rst, stages, max_iter: int, dist_on_ca=False,
             with torch.no_grad():
                 atoms = build_backbone(t[:, 0], t[:, 1], t[:, 2])
             atoms, _ = cartesian_relax_block(
-                atoms, (rst, relax1), _cart_r1_stages(),
+                atoms, relax1, _cart_r1_stages(),
                 weights_to_vec(SCOREFXN_RELAX), dist_on_ca=dist_on_ca,
                 res_mask=res_mask, stage_log=stage_log)
             x = _project_torsions(x, atoms)

@@ -26,6 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from trx2dy_torch.ops.spline_energy import SplineDense
 from trx2dy_torch.physics.spline import (
     SplineTable, fit_natural_cubic, masked_spline_energy,
 )
@@ -216,6 +217,15 @@ def tables_to(rst: RestraintSet, device,
 def masks_to(masks: RestraintMasks, device) -> RestraintMasks:
     return RestraintMasks(*(torch.as_tensor(np.asarray(mk), device=device)
                             for mk in masks))
+
+
+def dense_splines(rst: RestraintSet, masks: RestraintMasks) -> SplineDense:
+    """The spline kernel's dense-entry stage constants of tables and masks
+    as tensors (tables_to / masks_to): the dist, omega, theta and phi terms
+    in that order, checked once here, evaluated in one launch each time."""
+    return SplineDense([(t.y, t.m, t.x, mk) for t, mk in (
+        (rst.dist, masks.dist), (rst.omega, masks.omega),
+        (rst.theta, masks.theta), (rst.phi, masks.phi))])
 
 
 def restraint_energy(rst: RestraintSet, masks: RestraintMasks,
