@@ -1,0 +1,7 @@
+"""device_idle.train: the share of the profiled round in which no device
+operation ran, %."""
+from harness import readers
+
+
+def read(ctx):
+    return readers.idle(ctx)
