@@ -379,11 +379,12 @@ def event_device_us(e) -> float:
 
 def device_kernels_ms(prof) -> float:
     """The device time of every kernel (and copy) of a trace, in ms. Only
-    the device's own events count: a host op's self device time is its
-    kernels' time once more."""
-    from torch.autograd import DeviceType
-    return sum(event_device_us(e) for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3
+    the device's own work counts: a host op's self device time is its
+    kernels' time once more, and a profiler range's device-side copy (the
+    port's spans, a record_function) covers them again."""
+    from trx2dy_torch.utils.profiling import device_work
+    return sum(event_device_us(e)
+               for e in device_work(prof.key_averages())) / 1e3
 
 
 def kernel_device_ms(fn, kernel: str, iters: int = 20):
@@ -1132,9 +1133,9 @@ def profile_chunk(fun, x0, dev, iters: int = PROFILE_ITERS,
     device-busy share, kernel launches per energy evaluation, the five
     kernels with the most device time. Only device events count: the
     runtime's launch calls are listed beside them."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from trx2dy_torch.physics.minimize import STATS, lbfgs_init, lbfgs_run
+    from trx2dy_torch.utils.profiling import device_work
 
     st = lbfgs_run(fun, lbfgs_init(fun, x0), 2)          # warm
     torch.cuda.synchronize(dev)
@@ -1145,8 +1146,7 @@ def profile_chunk(fun, x0, dev, iters: int = PROFILE_ITERS,
         st = lbfgs_run(fun, st, iters)
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
-    kernels = sorted((e for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA),
+    kernels = sorted(device_work(prof.key_averages()),
                      key=event_device_us, reverse=True)
     busy_us = sum(event_device_us(e) for e in kernels)
     launches = sum(e.count for e in kernels)

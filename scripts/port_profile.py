@@ -37,6 +37,7 @@ from trx2dy_torch.models.features import get_f2d  # noqa: E402
 from trx2dy_torch.models.predictor2d_infer import (  # noqa: E402
     MSA_CUTOFF, read_msa,
 )
+from trx2dy_torch.utils.profiling import device_work  # noqa: E402
 
 L, ROWS, DEPTH = 400, 1000, 12
 HOOKED = (p2d.TriangleAttention, p2d.TriangleMultiplication, p2d.Bottle2neck,
@@ -122,15 +123,20 @@ def module_times(model, f2d, tokens):
 def profiler_summary(model, f2d, tokens, top: int = 12):
     """Wall ms of one profiled forward, the ms in which at least one kernel
     ran (union of kernel intervals), and the kernels by total time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with torch.inference_mode(), profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         model(f2d, tokens[:MSA_CUTOFF])
         wall = _sync_time(t0)
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-               and e.name != "Command Buffer Full"]
+    return (1e3 * wall, *kernel_summary(prof.events(), top))
+
+
+def kernel_summary(events, top: int = 12):
+    """The ms in which at least one kernel ran (union of kernel intervals)
+    and the `top` kernels by total time, of a trace's events(); the spans'
+    device-side copies are not kernels (profiling.device_work)."""
+    kernels = device_work(events)
     busy_us, end = 0.0, float("-inf")
     for s, e in sorted((k.time_range.start, k.time_range.end)
                        for k in kernels):
@@ -141,7 +147,7 @@ def profiler_summary(model, f2d, tokens, top: int = 12):
         totals[k.name][0] += 1
         totals[k.name][1] += k.time_range.elapsed_us()
     ranked = sorted(totals.items(), key=lambda kv: -kv[1][1])[:top]
-    return 1e3 * wall, busy_us / 1e3, [
+    return busy_us / 1e3, [
         (name[:90], n, us / 1e3) for name, (n, us) in ranked]
 
 

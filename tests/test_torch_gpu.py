@@ -90,3 +90,43 @@ def test_two_rank_step_on_the_card_matches_one_process():
         bound = 1e-6 * top if scale <= 1e-6 * top else 1e-4 * scale
         assert float(np.abs(grads[k] - r).max()) <= bound, k
     assert out[1][2] == steps
+
+
+@pytest.mark.gpu
+def test_spans_sync_the_card_once_in_collect_and_nowhere_else(monkeypatch):
+    """A Predictor2D forward at L=48 under tracing(True): no
+    torch.cuda.synchronize and no Event.synchronize before collect(),
+    exactly one in it; each span's device ms comes from its events."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from trx2dy_torch.device import resolve_device
+    from trx2dy_torch.models.convert import build_model, init_state_dict
+    from trx2dy_torch.utils import profiling
+
+    dev = resolve_device("cuda")
+    model = build_model(init_state_dict(seed=1, depth=2), dev)
+    gen = torch.Generator().manual_seed(2)
+    L, R = 48, 16
+    f2d = torch.randn((L, L, 526), generator=gen).to(dev)
+    msa = torch.randint(0, 21, (R, L), generator=gen).to(dev)
+    with torch.inference_mode():
+        model(f2d, msa)                     # kernels built, CUDA in use
+    torch.cuda.synchronize()
+    profiling.collect()
+
+    calls = []
+    sync, ev_sync = torch.cuda.synchronize, torch.cuda.Event.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a, **k: (calls.append("device"),
+                                         sync(*a, **k))[1])
+    monkeypatch.setattr(torch.cuda.Event, "synchronize",
+                        lambda self: (calls.append("event"),
+                                      ev_sync(self))[1])
+    with profiling.tracing(True), torch.inference_mode():
+        model(f2d, msa)
+    assert calls == []
+    recs = profiling.collect()
+    assert calls == ["device"]
+    assert [r.name for r in recs] == ["trunk", "heads"]
+    for r in recs:
+        assert r.device_ms > 0 and r.host_ms > 0

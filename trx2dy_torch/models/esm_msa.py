@@ -38,6 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from trx2dy_torch.models.predictor2d import Linear
+from trx2dy_torch.utils.profiling import span
 
 EMBED_DIM = 768
 HEADS = 12
@@ -266,56 +267,57 @@ class ESMMSA(nn.Module):
         Returns {'representations': {layer: (R, C, D)}, 'row_attentions'
         (layers, H, C, C) with need_head_weights, 'logits' (R, C, vocab)}.
         """
-        R, C = tokens.shape
-        n_layers = len(self.layers)
-        if R * C > max_tokens_per_msa:
-            if row_chunk is None:
-                row_chunk = max(1, max_tokens_per_msa // C)
-            if col_chunk is None:
-                col_chunk = max(1, max_tokens_per_msa // R)
-        tokens = tokens.long()
-        pad = tokens == PADDING_IDX
-        padding_mask = pad.float() if bool(pad.any()) else None
+        with span("esm"):
+            R, C = tokens.shape
+            n_layers = len(self.layers)
+            if R * C > max_tokens_per_msa:
+                if row_chunk is None:
+                    row_chunk = max(1, max_tokens_per_msa // C)
+                if col_chunk is None:
+                    col_chunk = max(1, max_tokens_per_msa // R)
+            tokens = tokens.long()
+            pad = tokens == PADDING_IDX
+            padding_mask = pad.float() if bool(pad.any()) else None
 
-        x = self.embed_tokens(tokens)                        # (R, C, D)
-        if res_idx is None:
-            mask = (~pad).long()
-            positions = torch.cumsum(mask, dim=1) * mask + PADDING_IDX
-        else:
-            r = torch.as_tensor(res_idx, device=tokens.device).reshape(-1)
-            if r.shape[0] == C - 1:                # no cls slot: prepend one
-                r = torch.cat([r[:1] - 1, r])
-            positions = torch.clamp(r + (2 - r.min()), 0, 1000)
-            positions = positions[None, :].expand(R, C)
-        x = x + self.embed_positions(positions)
-        x = x + self.msa_position_embedding[0, :R]
-        x = self.emb_layer_norm_before(x)
-        if padding_mask is not None:
-            x = x * (1 - padding_mask[..., None])
+            x = self.embed_tokens(tokens)                    # (R, C, D)
+            if res_idx is None:
+                mask = (~pad).long()
+                positions = torch.cumsum(mask, dim=1) * mask + PADDING_IDX
+            else:
+                r = torch.as_tensor(res_idx, device=tokens.device).reshape(-1)
+                if r.shape[0] == C - 1:            # no cls slot: prepend one
+                    r = torch.cat([r[:1] - 1, r])
+                positions = torch.clamp(r + (2 - r.min()), 0, 1000)
+                positions = positions[None, :].expand(R, C)
+            x = x + self.embed_positions(positions)
+            x = x + self.msa_position_embedding[0, :R]
+            x = self.emb_layer_norm_before(x)
+            if padding_mask is not None:
+                x = x * (1 - padding_mask[..., None])
 
-        reprs = {}
-        if 0 in repr_layers:
-            reprs[0] = x
-        row_attns = []
-        for li, layer in enumerate(self.layers):
-            x, attn = layer(x, padding_mask, row_chunk, col_chunk)
+            reprs = {}
+            if 0 in repr_layers:
+                reprs[0] = x
+            row_attns = []
+            for li, layer in enumerate(self.layers):
+                x, attn = layer(x, padding_mask, row_chunk, col_chunk)
+                if need_head_weights:
+                    row_attns.append(attn)
+                if li + 1 in repr_layers:
+                    reprs[li + 1] = x
+            x = self.emb_layer_norm_after(x)
+            if n_layers in repr_layers:
+                reprs[n_layers] = x                  # post-LN (model.py:419)
+
+            out = {"representations": reprs}
             if need_head_weights:
-                row_attns.append(attn)
-            if li + 1 in repr_layers:
-                reprs[li + 1] = x
-        x = self.emb_layer_norm_after(x)
-        if n_layers in repr_layers:
-            reprs[n_layers] = x                      # post-LN (model.py:419)
-
-        out = {"representations": reprs}
-        if need_head_weights:
-            out["row_attentions"] = torch.stack(row_attns)
-        head = self.lm_head
-        h = head.layer_norm(F.gelu(head.dense(x)))
-        out["logits"] = torch.einsum(
-            "rcd,vd->rcv", h, self.embed_tokens.weight.to(h.dtype)) \
-            + head.bias
-        return out
+                out["row_attentions"] = torch.stack(row_attns)
+            head = self.lm_head
+            h = head.layer_norm(F.gelu(head.dense(x)))
+            out["logits"] = torch.einsum(
+                "rcd,vd->rcv", h, self.embed_tokens.weight.to(h.dtype)) \
+                + head.bias
+            return out
 
     def contacts(self, row_attentions, prepend_bos: bool = True):
         """ContactPredictionHead (esm/modules.py:337-377): symmetrise, APC,

@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from trx2dy_torch.utils.profiling import span
+
 N_TOKENS = 21
 
 
@@ -63,22 +65,23 @@ def fast_dca(msa1hot: torch.Tensor, weights: torch.Tensor,
 
 def get_f2d(msa: torch.Tensor) -> torch.Tensor:
     """Full 526-dim pair features (L, L, 526) from an (R, L) token MSA."""
-    nrow, ncol = msa.shape
-    msa1hot = torch.nn.functional.one_hot(
-        msa.long(), N_TOKENS).to(torch.float32)
-    w = reweight(msa1hot, 0.8)
+    with span("features"):
+        nrow, ncol = msa.shape
+        msa1hot = torch.nn.functional.one_hot(
+            msa.long(), N_TOKENS).to(torch.float32)
+        w = reweight(msa1hot, 0.8)
 
-    f1d_seq = msa1hot[0, :, :20]
-    f1d_pssm = msa2pssm(msa1hot, w)
-    f1d = torch.cat([f1d_seq, f1d_pssm], dim=1)              # (L, 42)
+        f1d_seq = msa1hot[0, :, :20]
+        f1d_pssm = msa2pssm(msa1hot, w)
+        f1d = torch.cat([f1d_seq, f1d_pssm], dim=1)          # (L, 42)
 
-    if nrow > 1:
-        f2d_dca = fast_dca(msa1hot, w)
-    else:
-        f2d_dca = msa1hot.new_zeros((ncol, ncol, 442))
+        if nrow > 1:
+            f2d_dca = fast_dca(msa1hot, w)
+        else:
+            f2d_dca = msa1hot.new_zeros((ncol, ncol, 442))
 
-    return torch.cat([
-        f1d[:, None, :].expand(ncol, ncol, f1d.shape[1]),
-        f1d[None, :, :].expand(ncol, ncol, f1d.shape[1]),
-        f2d_dca,
-    ], dim=-1)
+        return torch.cat([
+            f1d[:, None, :].expand(ncol, ncol, f1d.shape[1]),
+            f1d[None, :, :].expand(ncol, ncol, f1d.shape[1]),
+            f2d_dca,
+        ], dim=-1)

@@ -35,6 +35,7 @@ from trx2dy_torch.models.predictor2d import (
     DEPTH, DIM, LayerNorm, Linear, Predictor2D,
 )
 from trx2dy_torch.models.structure_module import SMConfig, StructureModule
+from trx2dy_torch.utils.profiling import span
 
 N_ESM_TOKENS = 31
 ESM_DIM = 768
@@ -52,20 +53,22 @@ def e2e_pair_features(esm_repr: torch.Tensor, row_attn: torch.Tensor,
     esm_repr: (R, C) layer-12 representations with the cls column; row_attn
     (layers, heads, C, C); msa_esm (R, C) ESM-vocabulary tokens with cls,
     for the DCA block."""
-    repr_noclr = esm_repr[:, 1:]                         # (R, L, D)
-    seq_emb = repr_noclr[0]                              # (L, D)
-    L = seq_emb.shape[0]
-    pair_emb = torch.cat([seq_emb[None, :, :].expand(L, L, -1),
-                          seq_emb[:, None, :].expand(L, L, -1)], dim=-1)
-    attn_feats = row_attn[:, :, 1:, 1:].reshape(-1, L, L).permute(1, 2, 0)
-    tokens = msa_esm[:, 1:].long()
-    msa1hot = (torch.arange(N_ESM_TOKENS, device=tokens.device)
-               == tokens[..., None]).float()
-    if tokens.shape[0] > 1:
-        dca = fast_dca(msa1hot, reweight(msa1hot, 0.8))  # (L, L, 962)
-    else:
-        dca = msa1hot.new_zeros((L, L, N_ESM_TOKENS ** 2 + 1))
-    return torch.cat([pair_emb, attn_feats, dca], dim=-1), repr_noclr
+    with span("features"):
+        repr_noclr = esm_repr[:, 1:]                     # (R, L, D)
+        seq_emb = repr_noclr[0]                          # (L, D)
+        L = seq_emb.shape[0]
+        pair_emb = torch.cat([seq_emb[None, :, :].expand(L, L, -1),
+                              seq_emb[:, None, :].expand(L, L, -1)], dim=-1)
+        attn_feats = row_attn[:, :, 1:, 1:].reshape(-1, L, L) \
+            .permute(1, 2, 0)
+        tokens = msa_esm[:, 1:].long()
+        msa1hot = (torch.arange(N_ESM_TOKENS, device=tokens.device)
+                   == tokens[..., None]).float()
+        if tokens.shape[0] > 1:
+            dca = fast_dca(msa1hot, reweight(msa1hot, 0.8))  # (L, L, 962)
+        else:
+            dca = msa1hot.new_zeros((L, L, N_ESM_TOKENS ** 2 + 1))
+        return torch.cat([pair_emb, attn_feats, dca], dim=-1), repr_noclr
 
 
 def one_hot_dist(x: torch.Tensor) -> torch.Tensor:
@@ -180,36 +183,41 @@ class Folding(nn.Module):
         Returns the last cycle's {'geoms': softmaxed dist/omega/theta/phi,
         'plddt' (L,), 'plddt_prob', and the structure module's outputs
         (frames, angles, single, cords_ca, atom14, atom14_mask)}."""
-        dev = msa_esm.device
-        tick = timer or (lambda stage: None)
-        aatype = torch.as_tensor(sequence_to_aatype(seq), device=dev)
-        L = len(seq)
-        f2d, repr_noclr = e2e_pair_features(esm_repr, row_attn, msa_esm)
-        msa_trunk = msa_esm[:msa_cutoff, 1:]
-        msa_emb = repr_noclr[:msa_cutoff]
-        tick("features")
+        with span("folding"):
+            dev = msa_esm.device
+            tick = timer or (lambda stage: None)
+            aatype = torch.as_tensor(sequence_to_aatype(seq), device=dev)
+            L = len(seq)
+            f2d, repr_noclr = e2e_pair_features(esm_repr, row_attn, msa_esm)
+            msa_trunk = msa_esm[:msa_cutoff, 1:]
+            msa_emb = repr_noclr[:msa_cutoff]
+            tick("features")
 
-        pair_prev = torch.zeros(L, L, self.dim, device=dev)
-        single_prev = torch.zeros(L, self.dim, device=dev)
-        x_prev = torch.zeros(L, 3, device=dev)
-        out = None
-        for cycle in range(1 + n_recycle):
-            rec_single, rec_pair = self.recycle_embedder(
-                pair_prev, single_prev, x_prev)
-            logits, reprs = self.net2d(
-                f2d, msa_trunk, msa_emb=msa_emb,
-                rec_reprs={"single": rec_single, "pair": rec_pair},
-                return_repr=True, depth=trunk_depth)
-            geoms = {k: torch.softmax(v, dim=-1) for k, v in logits.items()}
-            tick(f"trunk_{cycle}")
-            sm_out = self.structure_module(reprs["msa"][0], reprs["pair"],
-                                           aatype, no_blocks=sm_blocks)
-            plddt, plddt_prob = self.to_plddt(sm_out["single"])
-            tick(f"structure_{cycle}")
-            out = {"geoms": geoms, "plddt": plddt, "plddt_prob": plddt_prob,
-                   **sm_out}
-            pair_prev, single_prev = reprs["pair"], reprs["msa"][0]
-            if coord_recycling:
-                x_prev = sm_out["cords_ca"]
-        return out
+            pair_prev = torch.zeros(L, L, self.dim, device=dev)
+            single_prev = torch.zeros(L, self.dim, device=dev)
+            x_prev = torch.zeros(L, 3, device=dev)
+            out = None
+            for cycle in range(1 + n_recycle):
+                with span("recycle"):
+                    rec_single, rec_pair = self.recycle_embedder(
+                        pair_prev, single_prev, x_prev)
+                logits, reprs = self.net2d(
+                    f2d, msa_trunk, msa_emb=msa_emb,
+                    rec_reprs={"single": rec_single, "pair": rec_pair},
+                    return_repr=True, depth=trunk_depth)
+                geoms = {k: torch.softmax(v, dim=-1)
+                         for k, v in logits.items()}
+                tick(f"trunk_{cycle}")
+                with span("structure"):
+                    sm_out = self.structure_module(reprs["msa"][0],
+                                                   reprs["pair"], aatype,
+                                                   no_blocks=sm_blocks)
+                    plddt, plddt_prob = self.to_plddt(sm_out["single"])
+                tick(f"structure_{cycle}")
+                out = {"geoms": geoms, "plddt": plddt,
+                       "plddt_prob": plddt_prob, **sm_out}
+                pair_prev, single_prev = reprs["pair"], reprs["msa"][0]
+                if coord_recycling:
+                    x_prev = sm_out["cords_ca"]
+            return out
 

@@ -83,6 +83,7 @@ from trx2dy_torch.ops.triangle_attention import (
 from trx2dy_torch.parallel.mesh import (
     copy_to, gather_rows, group_size, sum_over,
 )
+from trx2dy_torch.utils.profiling import span
 
 DIM = 128
 DEPTH = 12
@@ -531,22 +532,24 @@ class Predictor2D(nn.Module):
             x = x + rec_reprs["pair"]
         x = x + self.input_emb.relpos(
             torch.arange(f2d.shape[0], device=f2d.device))
-        for i, block in enumerate(self.net.blocks[:depth]):
-            drop = None if dropout is None else dropout[i]
-            if remat:
-                # no default-RNG draw inside a block: the masks come in
-                x, m = checkpoint(block, x, m, use_flash, drop, mp,
-                                  use_reentrant=False,
-                                  preserve_rng_state=False)
-            else:
-                x, m = block(x, m, use_flash, drop, mp)
-        sym = (x + x.transpose(0, 1)) * 0.5
-        out = {
-            "dist": self.to_dist_logits(sym),
-            "theta": self.to_theta_logits(x),
-            "omega": self.to_omega_logits(sym),
-            "phi": self.to_phi_logits(x),
-        }
+        with span("trunk"):
+            for i, block in enumerate(self.net.blocks[:depth]):
+                drop = None if dropout is None else dropout[i]
+                if remat:
+                    # no default-RNG draw inside a block: the masks come in
+                    x, m = checkpoint(block, x, m, use_flash, drop, mp,
+                                      use_reentrant=False,
+                                      preserve_rng_state=False)
+                else:
+                    x, m = block(x, m, use_flash, drop, mp)
+        with span("heads"):
+            sym = (x + x.transpose(0, 1)) * 0.5
+            out = {
+                "dist": self.to_dist_logits(sym),
+                "theta": self.to_theta_logits(x),
+                "omega": self.to_omega_logits(sym),
+                "phi": self.to_phi_logits(x),
+            }
         if return_repr:
             return out, {"pair": x, "msa": m}
         return out

@@ -18,6 +18,7 @@ from trx2dy_torch.io.a3m import parse_a3m
 from trx2dy_torch.models.convert import build_model, load_params
 from trx2dy_torch.models.features import get_f2d
 from trx2dy_torch.parallel.mesh import axis, shard
+from trx2dy_torch.utils.profiling import span
 
 MSA_CUTOFF = 500      # trunk row cap (utils.py:635)
 PARSE_LIMIT = 20000   # a3m row cap (utils.py:733)
@@ -42,13 +43,16 @@ def predict_geometry(model: torch.nn.Module, msa: np.ndarray,
     the device that holds `model`. mesh: a (dp, mp) DeviceMesh
     (parallel/mesh.py) whose mp axis splits the trunk's rows; every rank
     passes the whole MSA and gets the whole histograms."""
-    dev = next(model.parameters()).device
-    tokens = torch.as_tensor(np.asarray(msa, dtype=np.int64), device=dev)
-    f2d = get_f2d(tokens)
-    logits = model(f2d, shard(tokens[:MSA_CUTOFF], mesh, "mp"),
-                   mp=axis(mesh, "mp")[0])
-    return {k: torch.softmax(v, dim=-1).cpu().numpy()
-            for k, v in logits.items()}
+    with span("geometry"):
+        dev = next(model.parameters()).device
+        tokens = torch.as_tensor(np.asarray(msa, dtype=np.int64),
+                                 device=dev)
+        f2d = get_f2d(tokens)
+        logits = model(f2d, shard(tokens[:MSA_CUTOFF], mesh, "mp"),
+                       mp=axis(mesh, "mp")[0])
+        with span("output"):
+            return {k: torch.softmax(v, dim=-1).cpu().numpy()
+                    for k, v in logits.items()}
 
 
 def pred_2d_geometry(weight_file: str, msa_file: str,

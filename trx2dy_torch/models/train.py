@@ -43,6 +43,7 @@ from trx2dy_torch.models.predictor2d import draw_dropout
 from trx2dy_torch.parallel.mesh import (
     all_reduce_, axis, replicated, shard, shard_batch, shard_msa,
 )
+from trx2dy_torch.utils.profiling import span
 
 HEAD_BINS = {"dist": 37, "omega": 25, "theta": 25, "phi": 13}
 
@@ -117,15 +118,17 @@ def value_and_grad(model, f2d, msa, labels, mask,
     """batched_loss, detached, with its gradients accumulated into the
     parameters' .grad; with a mesh, the global batch's loss and gradients
     on every rank (reduce_gradients, and the loss averaged over dp)."""
-    loss = batched_loss(model, f2d, msa, labels, mask, depth=depth,
-                        generator=generator, remat=remat, mesh=mesh)
-    loss.backward()
-    loss = loss.detach()
-    if mesh is not None:
-        reduce_gradients(model, mesh)
-        # the mp ranks of a dp index hold the same loss: the mean over
-        # every rank is the mean over dp, the same bits on every rank
-        all_reduce_([loss], None, scale=1.0 / dist.get_world_size())
+    with span("forward"):
+        loss = batched_loss(model, f2d, msa, labels, mask, depth=depth,
+                            generator=generator, remat=remat, mesh=mesh)
+    with span("backward"):
+        loss.backward()
+        loss = loss.detach()
+        if mesh is not None:
+            reduce_gradients(model, mesh)
+            # the mp ranks of a dp index hold the same loss: the mean over
+            # every rank is the mean over dp, the same bits on every rank
+            all_reduce_([loss], None, scale=1.0 / dist.get_world_size())
     return loss
 
 
@@ -218,17 +221,19 @@ def make_train_step(optimizer: Optimizer, mesh=None,
     pin_float32()
 
     def step_fn(state: TrainState, f2d, msa, labels, mask):
-        if mesh is not None and state.step == 0:
-            replicated(list(state.model.parameters()))
-        generator = None
-        if dropout:
-            generator = torch.Generator(device=f2d.device).manual_seed(
-                step_seed(dropout_seed, state.step))
-        state.opt_state.zero_grad(set_to_none=True)
-        loss = value_and_grad(state.model, f2d, msa, labels, mask,
-                              depth=depth, generator=generator, remat=remat,
-                              mesh=mesh)
-        optimizer.update(state.opt_state)
-        return state._replace(step=state.step + 1), loss
+        with span("train_step"):
+            if mesh is not None and state.step == 0:
+                replicated(list(state.model.parameters()))
+            generator = None
+            if dropout:
+                generator = torch.Generator(device=f2d.device).manual_seed(
+                    step_seed(dropout_seed, state.step))
+            state.opt_state.zero_grad(set_to_none=True)
+            loss = value_and_grad(state.model, f2d, msa, labels, mask,
+                                  depth=depth, generator=generator,
+                                  remat=remat, mesh=mesh)
+            with span("optimizer"):
+                optimizer.update(state.opt_state)
+            return state._replace(step=state.step + 1), loss
 
     return step_fn
