@@ -2343,7 +2343,8 @@ def train_phase(dev, work: Path, L=TRAIN_L, rows=TRAIN_ROWS,
         MSA_CUTOFF, pred_2d_geometry, read_msa,
     )
     from trx2dy_torch.models.train import (
-        geometry_loss, init_train_state, make_optimizer, make_train_step,
+        OPTIMIZER_STATS, geometry_loss, init_train_state, make_optimizer,
+        make_train_step,
     )
     from trx2dy_torch.ops.triangle_attention import (
         tri_attn_core, tri_attn_core_plain,
@@ -2353,6 +2354,7 @@ def train_phase(dev, work: Path, L=TRAIN_L, rows=TRAIN_ROWS,
     data = work / "train_data"
     a3ms = write_training_set(data, L, rows, TRAIN_TARGETS, seed=9000)
     tri_attn_core.launches = 0
+    OPTIMIZER_STATS.reset()
 
     # the CLI at full width: one sample a step, no dropout, no remat
     out_dir = work / "train_out"
@@ -2372,9 +2374,20 @@ def train_phase(dev, work: Path, L=TRAIN_L, rows=TRAIN_ROWS,
            "ms_per_step": mean_ms("step"),
            "features_ms": mean_ms("features"),
            "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
-           "losses": cli_losses}
+           "losses": cli_losses,
+           "optimizer": {"updates": OPTIMIZER_STATS.updates,
+                         "tensors": OPTIMIZER_STATS.tensors,
+                         "zero_filled": OPTIMIZER_STATS.zero_filled}}
     print("train cli " + json.dumps(cli), flush=True)
     check(all(np.isfinite(cli_losses)), "train cli: a loss is not finite")
+    # every update covers every parameter; the loss leaves the unread ones
+    # without a gradient each step, so the update zero-fills those alone
+    names = [k for k, _ in state.model.named_parameters()]
+    want = (cli_steps, cli_steps * len(names),
+            cli_steps * len(unread_params(names, depth)))
+    check(tuple(cli["optimizer"].values()) == want,
+          f"train cli: the optimizer's counts {cli['optimizer']}, expected "
+          f"updates, tensors, zero-filled {want}")
     shapes = param_shapes(depth)
     for n in range(ckpt_every, cli_steps + 1, ckpt_every):
         ckpt = out_dir / f"ckpt_{n}.npz"

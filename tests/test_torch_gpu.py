@@ -130,3 +130,98 @@ def test_spans_sync_the_card_once_in_collect_and_nowhere_else(monkeypatch):
     assert [r.name for r in recs] == ["trunk", "heads"]
     for r in recs:
         assert r.device_ms > 0 and r.host_ms > 0
+
+
+def _per_tensor_clip(grads, clip):
+    """The clip before the multi-tensor one: a norm and a scale per
+    gradient."""
+    norm = torch.linalg.vector_norm(
+        torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    scale = torch.where(norm < clip, 1.0, clip / norm)
+    for g in grads:
+        g.mul_(scale)
+
+
+def _device_kernels(fn) -> int:
+    """The device operations (kernels, copies, sets) fn() issues, by
+    torch.profiler."""
+    from trx2dy_torch.utils.profiling import device_work
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return len(device_work(prof.events()))
+
+
+@pytest.mark.gpu
+def test_multi_tensor_update_on_the_card(monkeypatch):
+    """Three train steps of a depth-2 Predictor2D at L=64: each leaf within
+    1e-6 of its norm of the per-tensor clip and foreach AdamW, fed the
+    gradients each step computed. One update of the full-width model's
+    2007 parameter tensors issues at most 150 device operations (the
+    per-tensor clip alone over 4014) and never syncs with the host."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from trx2dy_torch.device import resolve_device
+    from trx2dy_torch.models.convert import build_model, init_state_dict
+    from trx2dy_torch.models.predictor2d import DistPredictor
+    from trx2dy_torch.models.train import (
+        HEAD_BINS, Optimizer, init_train_state, make_optimizer,
+        make_train_step,
+    )
+
+    dev = resolve_device("cuda")
+    gen = torch.Generator().manual_seed(6)
+    L, R = 64, 16
+    f2d = torch.randn((1, L, L, 526), generator=gen).to(dev)
+    msa = torch.randint(0, 21, (1, R, L), generator=gen).to(dev)
+    labels = {k: torch.randint(0, n, (1, L, L), generator=gen).to(dev)
+              for k, n in HEAD_BINS.items()}
+    mask = (torch.rand((1, L, L), generator=gen) < 0.8).to(dev)
+    opt = make_optimizer()
+    state = init_train_state(build_model(init_state_dict(seed=8, depth=2),
+                                         dev), opt)
+    params = list(state.model.parameters())
+    ref = [p.detach().clone().requires_grad_(True) for p in params]
+    ref_opt = torch.optim.AdamW(ref, lr=opt.lr, betas=(0.9, 0.999),
+                                eps=1e-8, weight_decay=opt.weight_decay,
+                                foreach=True)
+    real_update = Optimizer.update
+
+    def recording(self, opt_state):
+        for r, p in zip(ref, params):
+            r.grad = torch.zeros_like(r) if p.grad is None \
+                else p.grad.detach().clone()
+        return real_update(self, opt_state)
+
+    monkeypatch.setattr(Optimizer, "update", recording)
+    step = make_train_step(opt, depth=2)
+    for _ in range(3):
+        state, _ = step(state, f2d, msa, labels, mask)
+        _per_tensor_clip([r.grad for r in ref], opt.clip)
+        ref_opt.step()
+    for (k, p), r in zip(state.model.named_parameters(), ref):
+        gap = (p.detach() - r.detach()).norm().item()
+        assert gap <= 1e-6 * r.detach().norm().item(), (k, gap)
+    monkeypatch.undo()
+
+    full = list(DistPredictor().to(dev).parameters())
+    assert len(full) == 2007
+    for p in full:
+        p.grad = torch.zeros_like(p)
+    adamw = opt.init(full)
+    opt.update(adamw)                       # AdamW builds its moments
+
+    def update_unsynced():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            opt.update(adamw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    kernels = _device_kernels(update_unsynced)
+    clip_kernels = _device_kernels(
+        lambda: _per_tensor_clip([p.grad for p in full], opt.clip))
+    assert kernels <= 150 and clip_kernels > 4014, (kernels, clip_kernels)
+

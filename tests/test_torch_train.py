@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import optax
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from trx2dy.models import train as jtrain
 from trx2dy.models.dataset import labels_from_structure as jax_labels
@@ -279,6 +280,75 @@ def test_clip_by_global_norm_semantics(norm):
     for p, w in zip(params, want):
         assert torch.allclose(p.grad, w, rtol=1e-12, atol=0.0)
         assert torch.equal(p, torch.zeros_like(p))      # lr 0: no move
+
+
+class _CountOps(TorchDispatchMode):
+    """The aten ops dispatched inside the mode, by name."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+def test_update_dispatches_a_fixed_number_of_ops():
+    """Optimizer.update dispatches as many ops over 800 parameter tensors as
+    over 8 (one of them without a gradient each time), none of which reads
+    a value back to the host, and OPTIMIZER_STATS counts every tensor
+    covered and the one zero-filled gradient an update."""
+    stats = train.OPTIMIZER_STATS
+    counted = {}
+    for n in (8, 800):
+        params = [torch.nn.Parameter(torch.ones(i % 5 + 1, 3))
+                  for i in range(n)]
+        for p in params[1:]:
+            p.grad = torch.full_like(p, 0.5)
+        opt = train.make_optimizer()
+        state = opt.init(params)
+        stats.reset()
+        opt.update(state)                   # AdamW builds its moments
+        params[0].grad = None
+        with _CountOps() as mode:
+            opt.update(state)
+        counted[n] = mode.ops
+        assert (stats.updates, stats.tensors, stats.zero_filled) == \
+            (2, 2 * n, 2)
+        assert "aten._local_scalar_dense.default" not in mode.ops
+        assert all(float(state.state[p]["step"]) == 2 for p in params)
+    assert len(counted[8]) == len(counted[800]), counted
+
+
+def test_update_matches_the_per_tensor_clip_and_foreach_adamw():
+    """Three float32 updates, the gradients' norm above the clip and below
+    it, agree with a norm and a scale per gradient followed by the foreach
+    AdamW, within 1e-6 of each parameter's norm."""
+    gen = torch.Generator().manual_seed(2)
+    shapes = [(3, 4), (5,), (2, 2, 2), (7, 1)]
+    params = [torch.nn.Parameter(torch.randn(s, generator=gen))
+              for s in shapes]
+    ref = [p.detach().clone().requires_grad_(True) for p in params]
+    opt = train.make_optimizer()
+    state = opt.init(params)
+    ref_opt = torch.optim.AdamW(ref, lr=opt.lr, betas=(0.9, 0.999),
+                                eps=1e-8, weight_decay=opt.weight_decay,
+                                foreach=True)
+    for size in (5.0, 0.1, 2.0):
+        grads = [size * torch.randn(s, generator=gen) for s in shapes]
+        for p, r, g in zip(params, ref, grads):
+            p.grad, r.grad = g.clone(), g.clone()
+        opt.update(state)
+        norm = torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(r.grad) for r in ref]))
+        scale = torch.where(norm < opt.clip, 1.0, opt.clip / norm)
+        for r in ref:
+            r.grad.mul_(scale)
+        ref_opt.step()
+        for p, r in zip(params, ref):
+            assert (p - r).norm() <= 1e-6 * r.norm()
+            assert (p.grad - r.grad).norm() <= 1e-6 * r.grad.norm()
 
 
 def test_dropout_masks_axes_rate_and_scale():

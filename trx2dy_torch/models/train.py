@@ -13,7 +13,9 @@ PyTorch counterpart of trx2dy/models/train.py:
     explicit torch.Generator seeded from (dropout_seed, step), the
     counterpart of fold_in(PRNGKey(dropout_seed), step);
   * remat per trunk block (torch.utils.checkpoint);
-  * clip_by_global_norm then AdamW, with optax's semantics.
+  * clip_by_global_norm then AdamW, with optax's semantics, in a fixed
+    number of multi-tensor calls over all the parameter tensors: their
+    norms, the scale and torch's fused AdamW.
 
 A TrainState holds the model (whose parameters are JAX's `params`), the
 torch AdamW that holds the moments (JAX's `opt_state`) and the step.
@@ -156,35 +158,59 @@ def reduce_gradients(model, mesh) -> None:
         all_reduce_([p.grad for p in params], dp, scale=1.0 / n_dp)
 
 
+class _OptimizerStats:
+    """Optimizer.update's work since the last reset(): the updates taken,
+    the gradients their multi-tensor calls covered (every parameter's, each
+    update), and those of them the update allocated as zeros because the
+    loss did not read their parameter."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.updates = 0
+        self.tensors = 0
+        self.zero_filled = 0
+
+
+OPTIMIZER_STATS = _OptimizerStats()
+
+
 class Optimizer(NamedTuple):
     """optax.chain(clip_by_global_norm(clip), adamw(lr, weight_decay)):
     b1 0.9, b2 0.999, eps 1e-8 outside the square root, bias-corrected,
-    decay decoupled and applied to every parameter (one param group of
-    torch.optim.AdamW)."""
+    decay decoupled and applied to every parameter (one param group of a
+    fused torch.optim.AdamW: its step counts live on the device)."""
     lr: float = 1e-3
     weight_decay: float = 1e-4
     clip: float = 1.0
 
     def init(self, params) -> torch.optim.AdamW:
         return torch.optim.AdamW(list(params), lr=self.lr, betas=(0.9, 0.999),
-                                 eps=1e-8, weight_decay=self.weight_decay)
+                                 eps=1e-8, weight_decay=self.weight_decay,
+                                 fused=True)
 
     def update(self, opt_state: torch.optim.AdamW) -> None:
-        """Clip the parameters' gradients and take one AdamW step. A
-        parameter the loss does not read gets a zero gradient, so that it
-        decays as optax decays it (AdamW skips a None gradient)."""
-        params = [p for g in opt_state.param_groups for p in g["params"]]
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
+        """Clip the parameters' gradients and take one AdamW step, in a
+        fixed number of multi-tensor calls over all of them (the norms, the
+        scale, the fused AdamW) and with no sync with the host. A parameter
+        the loss does not read gets a zero gradient, so that it decays as
+        optax decays it (AdamW skips a None gradient)."""
+        (group,) = opt_state.param_groups
+        params = group["params"]
         grads = [p.grad for p in params]
+        for i, g in enumerate(grads):
+            if g is None:
+                grads[i] = params[i].grad = torch.zeros_like(params[i])
+                OPTIMIZER_STATS.zero_filled += 1
         norm = torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+            torch.stack(torch._foreach_norm(grads)))
         # optax scales by clip / norm only where the norm reaches the clip
         scale = torch.where(norm < self.clip, 1.0, self.clip / norm)
-        for g in grads:
-            g.mul_(scale)
+        torch._foreach_mul_(grads, scale)
         opt_state.step()
+        OPTIMIZER_STATS.updates += 1
+        OPTIMIZER_STATS.tensors += len(grads)
 
 
 def make_optimizer(lr: float = 1e-3, weight_decay: float = 1e-4,
