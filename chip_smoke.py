@@ -15,7 +15,8 @@ Phases; any failure exits non-zero and no phase is skipped:
      float64 computation; kernel, plain and library times beside the bound
      the card's data sheet gives. Triangle attention row- and column-wise
      (held to TRI_ATTN_TOL, with the bias as the trunk lays it out and as
-     an (L, L, H) array); the spline restraint energy's dense entry, all
+     an (L, L, H) array), and row-wise over MSA_ROW_SHAPE's rows of an
+     MSA, as AlphaFold2's Evoformer calls it; the spline restraint energy's dense entry, all
      four knot grids in one launch, at (B, L) = (50, 150) and (3, 37),
      bit-identical on a repeat, its fused pair entry, all four knot
      grids in one launch, at the bucketed pair counts of a full L=150 mask
@@ -205,6 +206,9 @@ DEPTH = 12
 # triangle attention against float64: the kernel keeps float32 accuracy
 # (3xTF32); single-pass TF32 would be ~1e-3 off and must fail here
 TRI_ATTN_TOL = 1e-5
+# (R, L, H): AlphaFold2's MSA row attention with pair bias at 512 cluster
+# rows, the longest L of its benchmark cell and 8 heads of HEAD_DIM
+MSA_ROW_SHAPE = (512, 368, 8)
 PLAIN_PATH_TOL = 1e-3      # probabilities, kernel path vs plain path
 HEADS, HEAD_DIM = 4, 32
 
@@ -282,7 +286,7 @@ E2E_CA_TOL = 0.01
 # with a checkpoint every TRAIN_CKPT_EVERY; then TRAIN_STEPS steps of
 # make_train_step with dropout and remat on the first target
 TRAIN_L, TRAIN_ROWS, TRAIN_MSA_ROWS, TRAIN_TARGETS = 256, 160, 128, 3
-TRAIN_CLI_STEPS, TRAIN_CKPT_EVERY, TRAIN_STEPS = 20, 10, 10
+TRAIN_CLI_STEPS, TRAIN_CKPT_EVERY, TRAIN_STEPS = 10, 5, 10
 # the first step on the card against the port's CPU path at a small size:
 # loss and gradients per tensor relative to the tensor's largest value,
 # the updated parameters as |card - cpu| / |cpu| over all of them (Adam's
@@ -407,15 +411,17 @@ def kernel_device_ms(fn, kernel: str, iters: int = 20):
 # kernels against their plain versions
 # --------------------------------------------------------------------------
 
-def tri_attn_inputs(L: int, dev, seed: int):
-    """q, k, v as the trunk makes them (views into one (L, L, 384) qkv
-    projection), and the (L, L, H) bias as the trunk makes it: a view of a
-    head-major (H, L, L) array."""
+def tri_attn_inputs(L: int, dev, seed: int, rows: int = None,
+                    heads: int = HEADS):
+    """q, k, v as the trunk makes them (views into one (rows, L, 3 H D)
+    qkv projection; rows L unless given), and the (L, L, H) bias as the
+    trunk makes it: a view of a head-major (H, L, L) array."""
+    rows = L if rows is None else rows
     gen = torch.Generator().manual_seed(seed)
-    qkv = torch.randn(L, L, 3 * HEADS * HEAD_DIM, generator=gen).to(dev)
-    q, k, v = (t.reshape(L, L, HEADS, HEAD_DIM)
+    qkv = torch.randn(rows, L, 3 * heads * HEAD_DIM, generator=gen).to(dev)
+    q, k, v = (t.reshape(rows, L, heads, HEAD_DIM)
                for t in torch.chunk(qkv, 3, dim=-1))
-    bias = torch.randn(HEADS, L, L, generator=gen).to(dev).permute(1, 2, 0)
+    bias = torch.randn(heads, L, L, generator=gen).to(dev).permute(1, 2, 0)
     return q, k, v, bias
 
 
@@ -431,14 +437,16 @@ def sdpa_tri_attn(q, k, v, bias, wise):
     return out.transpose(0, 1) if wise == "col" else out
 
 
-def tri_attn_bound_ms(L: int, peaks) -> tuple[float, str, float]:
-    """(bound, what bounds it, the 3xTF32 bound): the function's float32
-    operations at the f32 rate, or its bytes, whichever takes longer; and
-    the three TF32 products per product the kernel runs, at the dense TF32
-    rate."""
-    flops = 4.0 * L ** 3 * HEADS * HEAD_DIM          # q.k and p.v products
-    nbytes = 4.0 * (4 * L * L * HEADS * HEAD_DIM     # q, k, v in; out
-                    + L * L * HEADS)                 # bias
+def tri_attn_bound_ms(L: int, peaks, rows: int = None,
+                      heads: int = HEADS) -> tuple[float, str, float]:
+    """(bound, what bounds it, the 3xTF32 bound) of one launch over rows
+    (L unless given) of L positions: the function's float32 operations at
+    the f32 rate, or its bytes, whichever takes longer; and the three TF32
+    products per product the kernel runs, at the dense TF32 rate."""
+    rows = L if rows is None else rows
+    flops = 4.0 * rows * L * L * heads * HEAD_DIM    # q.k and p.v products
+    nbytes = 4.0 * (4 * rows * L * heads * HEAD_DIM  # q, k, v in; out
+                    + L * L * heads)                 # bias
     t_ops, t_bytes = flops / peaks[0], nbytes / peaks[1]
     t_tf32 = max(3.0 * flops / peaks[2], t_bytes)
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes \
@@ -487,7 +495,37 @@ def kernel_phase(dev, peaks, lengths=KERNEL_LENGTHS):
                 tri_attn_bound_ms(L, peaks)
             print("tri_attn " + json.dumps(row), flush=True)
             rows.append(row)
+    rows.append(msa_row_case(dev, peaks))
     return rows
+
+
+def msa_row_case(dev, peaks, shape=MSA_ROW_SHAPE) -> dict:
+    """The kernel row-wise over R MSA rows with an (L, L, H) pair bias
+    (AlphaFold2's MSA row attention with pair bias), against the plain
+    version in float64: one launch, within TRI_ATTN_TOL."""
+    from trx2dy_torch.ops.triangle_attention import (
+        tri_attn_core, tri_attn_core_plain)
+    R, L, H = shape
+    q, k, v, bias = tri_attn_inputs(L, dev, seed=R + L, rows=R, heads=H)
+    before = tri_attn_core.launches
+    out = tri_attn_core(q, k, v, bias, "row")
+    torch.cuda.synchronize()
+    check(tri_attn_core.launches == before + 1,
+          f"tri_attn msa_row {shape}: launch counter did not advance by 1")
+    check(bool(torch.isfinite(out).all()),
+          f"tri_attn msa_row {shape}: non-finite output")
+    ref = tri_attn_core_plain(q.double(), k.double(), v.double(),
+                              bias.double(), "row")
+    err = (out.double() - ref).abs().max().item()
+    del ref
+    check(err <= TRI_ATTN_TOL,
+          f"tri_attn msa_row {shape}: max abs err {err} > {TRI_ATTN_TOL}")
+    row = {"R": R, "L": L, "H": H, "wise": "msa_row", "max_abs_err": err,
+           "kernel_ms": time_ms(lambda: tri_attn_core(q, k, v, bias, "row"))}
+    row["bound_ms"], row["bound_by"], row["bound_ms_3xtf32"] = \
+        tri_attn_bound_ms(L, peaks, rows=R, heads=H)
+    print("tri_attn " + json.dumps(row), flush=True)
+    return row
 
 
 def random_histograms(L: int, seed: int) -> dict:
@@ -3019,7 +3057,9 @@ def kernel_summary(kernel_rows, spline_rows, attn_paths: dict, folds,
     (in all and by path), its error, its times and its bound. attn_paths:
     the attention launches by path; folds: phase 5's requests and phase
     10's one-process folds."""
-    at_max = [r for r in kernel_rows if r["L"] == max(KERNEL_LENGTHS)]
+    at_max = [r for r in kernel_rows if r["L"] == max(KERNEL_LENGTHS)
+              and r["wise"] != "msa_row"]
+    msa_row = next(r for r in kernel_rows if r["wise"] == "msa_row")
     mean = lambda key: sum(r[key] for r in at_max) / len(at_max)
     kernels = [{
         "name": "tri_attn_fwd",
@@ -3053,6 +3093,25 @@ def kernel_summary(kernel_rows, spline_rows, attn_paths: dict, folds,
                  "with the trunk's head-major bias (kernel_ms_ijh_bias: an "
                  "(L, L, H) bias); bound_ms counts f32 operations at the "
                  "f32 rate, bound_ms_3xtf32 the kernel's 3 TF32 products",
+    }, {
+        "name": "tri_attn_fwd.msa_row",
+        "route": "cuda",
+        "source": "trx2dy_torch/csrc/triangle_attention.cu",
+        "replaces": "trx2dy/ops/triangle_attention.py:38",
+        "launches": 1,
+        "max_abs_err": msa_row["max_abs_err"],
+        "ms": msa_row["kernel_ms"],
+        "kernel_ms": msa_row["kernel_ms"],
+        "bound_ms": msa_row["bound_ms"],
+        "bound_by": msa_row["bound_by"],
+        "bound_ms_3xtf32": msa_row["bound_ms_3xtf32"],
+        "shape": f"R={msa_row['R']} MSA rows, L={msa_row['L']}, "
+                 f"H={msa_row['H']}, D={HEAD_DIM}, f32, row-wise with an "
+                 "(L, L, H) pair bias: AlphaFold2's MSA row attention (192 "
+                 "launches a target at its cell's 4 cycles, none on this "
+                 "smoke's main path); the kernel by CUDA events; bound_ms "
+                 "counts 4 R L^2 H D f32 operations and the bytes of q, k, "
+                 "v, the output and the bias",
     }]
     B, L = SPLINE_SHAPES[0]
     dense_rows = [r for r in spline_rows if r["entry"] == "dense"]

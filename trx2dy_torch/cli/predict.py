@@ -14,6 +14,19 @@ converted .npz; python -m trx2dy_torch.cli.convert). An MSA of more than
 (hhfilter -diff, reused when present) and its first nrows rows are read.
 --bf16 (the default) casts the matrices to bfloat16 with float32 norms
 and biases, the reference's autocast.
+
+    python -m trx2dy_torch.cli.predict --arch af2 -i t.a3m -o out/ \
+        [-mdir models/ -mname alphafold2 | --random_weights] [--seed N] \
+        [-nrec 3] [--no-bf16]
+
+--arch af2 predicts with AlphaFold2, monomer, without templates
+(models/alphafold2.py): the a3m's rows and deletion counts are featurized
+on the device (the query and 511 centres drawn from --seed, up to 1024
+extra rows), then the model with its recycles; it writes
+<model_name>_results.npz (plddt, distogram), <model_name>.pdb and
+plddt.csv. Its weights are -mdir/<model_name>.npz in the port's keys, or
+with --random_weights drawn from --seed (the released parameters are not
+converted yet).
 """
 from __future__ import annotations
 
@@ -40,6 +53,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                         "PyTorch path)")
+    p.add_argument("--arch", choices=("e2e", "af2"), default="e2e",
+                   help="e2e: ESM-MSA-1b and the trRosettaX2 Folding model; "
+                        "af2: AlphaFold2 monomer without templates")
+    p.add_argument("--seed", type=int, default=0,
+                   help="af2: the seed of the cluster draw, and of the "
+                        "weights with --random_weights")
+    p.add_argument("--random_weights", action="store_true",
+                   help="af2: seeded random weights in place of -mdir's")
     return p
 
 
@@ -49,6 +70,8 @@ def main(argv=None, timings: list = None) -> dict:
     the ESM forward, each cycle's trunk and structure module, and the file
     writing."""
     args = build_parser().parse_args(argv)
+    if args.arch == "af2":
+        return main_af2(args, timings)
     import numpy as np
     import torch
 
@@ -128,6 +151,49 @@ def main(argv=None, timings: list = None) -> dict:
     print("done!")
     print(f"pLDDT: {float(plddt.mean()):.3f}")
     return out
+
+
+def main_af2(args, timings: list = None) -> dict:
+    """--arch af2: read, weights, predict (models/alphafold2.predict, the
+    stages between weights and write), write; returns the host outputs."""
+    import numpy as np
+    import torch
+
+    from trx2dy_torch.device import StageTimer, resolve_device
+    from trx2dy_torch.io.a3m import ALPHABET, parse_a3m_deletions
+    from trx2dy_torch.io.pdbio import write_pdb_atom14
+    from trx2dy_torch.models.alphafold2 import predict
+    from trx2dy_torch.models.convert import (
+        build_af2, init_af2_state_dict, load_state,
+    )
+
+    device = resolve_device(args.device)     # raises before any output
+    tick = StageTimer(timings, device)
+    os.makedirs(args.out_dir, exist_ok=True)
+    msa, deletion = parse_a3m_deletions(args.msa, limit=30000)
+    seq = "".join(ALPHABET[t] for t in msa[0]).replace("-", "X")
+    tick("read")
+    state = init_af2_state_dict(args.seed) if args.random_weights else \
+        load_state(_find(args.model_pth, args.model_name, (".npz",)))
+    model = build_af2(state, device,
+                      torch.bfloat16 if args.bf16 else None)
+    tick("weights")
+    host, _ = predict(model, msa, deletion, args.seed, args.num_recycle)
+    tick("predict")
+    np.savez_compressed(
+        os.path.join(args.out_dir, f"{args.model_name}_results.npz"),
+        plddt=host["plddt"], distogram=host["distogram"])
+    write_pdb_atom14(os.path.join(args.out_dir, f"{args.model_name}.pdb"),
+                     seq, host["atom14"], host["atom14_mask"],
+                     host["plddt"])
+    with open(os.path.join(args.out_dir, "plddt.csv"), "w") as f:
+        f.write("Residue_Index,pLDDT\n")
+        for i, v in enumerate(host["plddt"]):
+            f.write(f"{i + 1},{float(v)}\n")
+    tick("write")
+    print("done!")
+    print(f"pLDDT: {float(host['plddt'].mean()):.3f}")
+    return host
 
 
 def _find(mdir: str, stem: str, exts) -> str:

@@ -328,22 +328,27 @@ tri_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // Plain C entry point, bound from Python with ctypes. q, k, v and out are
 // float32 with head stride D and unit element stride, 16-byte aligned per
-// (row, position, head) vector; strides are in elements. Returns
+// (row, position, head) vector; strides are in elements. q, k, v and out
+// hold `rows` rows of L positions (the grid's z axis runs over the rows),
+// the bias is (L, L, H): rows = L for the triangle attentions, the MSA's
+// depth for the MSA row attention with pair bias. Returns
 // cudaGetLastError() after the launch.
 extern "C" int trx2dy_tri_attn_fwd(
     const float* q, const float* k, const float* v, const float* bias,
-    float* out, int L, int H, int head_dim, long long q_sr, long long q_sp,
+    float* out, int rows, int L, int H, int head_dim, long long q_sr,
+    long long q_sp,
     long long k_sr, long long k_sp, long long v_sr, long long v_sp,
     long long o_sr, long long o_sp, long long b_si, long long b_sj,
     long long b_sh, void* stream) {
-  if (L <= 0 || H <= 0 || H > 65535 || L > 65535 || head_dim != D)
+  if (rows <= 0 || L <= 0 || H <= 0 || rows > 65535 || H > 65535 ||
+      L > 65535 || head_dim != D)
     return (int)cudaErrorInvalidValue;
   const cudaError_t attr = cudaFuncSetAttribute(
       tri_attn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       SMEM_BYTES);
   if (attr != cudaSuccess) return (int)attr;
   const double log2e = 1.4426950408889634;
-  const dim3 grid((L + BQ - 1) / BQ, H, L);
+  const dim3 grid((L + BQ - 1) / BQ, H, rows);
   tri_attn_fwd_kernel<<<grid, THREADS, SMEM_BYTES,
                         static_cast<cudaStream_t>(stream)>>>(
       q, k, v, bias, out, L, q_sr, q_sp, k_sr, k_sp, v_sr, v_sp, o_sr, o_sp,

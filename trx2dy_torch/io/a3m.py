@@ -36,25 +36,33 @@ def parse_a3m(filename: str, limit: int = 20000) -> np.ndarray:
     Query length is taken from the second line; lowercase/'*' stripped;
     wrong-length rows skipped; at most `limit` rows.
     """
-    seqs = []
+    return parse_a3m_deletions(filename, limit)[0]
+
+
+def parse_a3m_deletions(filename: str, limit: int = 20000) -> tuple:
+    """parse_a3m's (N, L) uint8 tokens and, beside them, (N, L) int32
+    deletion counts: the lowercase insertion letters each row carries
+    before each column (AlphaFold2's deletion matrix)."""
     with open(filename) as f:
         lines = f.readlines()
     try:
-        seq_len = len(lines[1].strip())
+        seq_len = len(lines[1].strip().translate(_LOWER_TABLE))
     except IndexError:
         seq_len = None
+    seqs, dels = [], []
     for line in lines:
         if not line or line[0] == ">":
             continue
-        s = line.rstrip().translate(_LOWER_TABLE)
-        if seq_len is not None and len(s) != seq_len:
+        raw = np.frombuffer(line.rstrip().encode("ascii"), dtype=np.uint8)
+        lower = (raw >= ord("a")) & (raw <= ord("z"))
+        keep = ~lower & (raw != ord("*"))
+        if seq_len is not None and int(keep.sum()) != seq_len:
             continue
-        seqs.append(s)
+        seqs.append(_CHAR_TO_TOKEN[raw[keep]])
+        dels.append(np.diff(np.cumsum(lower)[keep], prepend=0))
         if len(seqs) >= limit:
             break
-    msa = np.array([list(s) for s in seqs], dtype="|S1").view(np.uint8)
-    msa = msa.reshape(len(seqs), -1)
-    return _CHAR_TO_TOKEN[msa]
+    return np.stack(seqs), np.stack(dels).astype(np.int32)
 
 
 def read_fasta(file: str) -> str:

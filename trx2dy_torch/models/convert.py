@@ -27,6 +27,7 @@ from typing import Dict, List, Mapping
 import numpy as np
 import torch
 
+from trx2dy_torch.models.alphafold2 import AF2Config, AlphaFold2
 from trx2dy_torch.models.esm_msa import ESMMSA
 from trx2dy_torch.models.folding_e2e import Folding
 from trx2dy_torch.models.predictor2d import DEPTH, DistPredictor
@@ -240,14 +241,41 @@ def esm_config_of(state: Mapping[str, torch.Tensor]) -> dict:
             "max_rows": state["msa_position_embedding"].shape[1]}
 
 
+ALIGN_BYTES = 256
+
+
+def packed_state(state: Mapping[str, torch.Tensor], device
+                 ) -> Dict[str, torch.Tensor]:
+    """The tensors on `device` as views into one flat buffer per dtype,
+    each starting on a 256-byte boundary: products on unaligned bf16
+    weights run ~18 % slower."""
+    by_dtype: Dict[torch.dtype, List[str]] = {}
+    for k in sorted(state):
+        by_dtype.setdefault(state[k].dtype, []).append(k)
+    out = {}
+    for dtype, keys in by_dtype.items():
+        step = ALIGN_BYTES // torch.empty((), dtype=dtype).element_size()
+        spans = [-(-state[k].numel() // step) * step for k in keys]
+        buf = torch.empty(sum(spans), dtype=dtype, device=device)
+        at = 0
+        for k, n in zip(keys, spans):
+            t = state[k]
+            out[k] = buf[at:at + t.numel()].view(t.shape)
+            out[k].copy_(t)
+            at += n
+    return out
+
+
 def _build(cls, kwargs: dict, state: Mapping[str, torch.Tensor], device,
            dtype) -> torch.nn.Module:
+    """cls(**kwargs) on `device` in eval mode, its tensors placed by
+    packed_state wherever the state came from; with dtype the weights
+    cast by cast_params first."""
     if dtype is not None:
         state = cast_params(state, dtype)
     with torch.device("meta"):
         model = cls(**kwargs)
-    load_into(model, {k: v.to(device) for k, v in state.items()},
-              assign=True)
+    load_into(model, packed_state(state, device), assign=True)
     return model.eval()
 
 
@@ -281,3 +309,60 @@ def init_folding_state_dict(seed: int, **sizes) -> Dict[str, np.ndarray]:
     default sizes unless given (Folding's arguments)."""
     with torch.device("meta"):
         return _random_weights(_shapes(Folding(**sizes)), seed)
+
+
+# --------------------------------------------------------------------------
+# AlphaFold2 (models/alphafold2.py)
+# --------------------------------------------------------------------------
+
+_EVO_RE = re.compile(r"^(evoformer|extra_msa)\.(\d+)\.")
+
+
+def af2_config_of(state: Mapping[str, torch.Tensor]) -> AF2Config:
+    """AlphaFold2's widths and depths read from a state's shapes; the bin
+    ranges, which no shape holds, are the published ones."""
+    def shape(k):
+        return tuple(state[k].shape)
+
+    def blocks(stack):
+        return 1 + max(int(m.group(2)) for k in state
+                       if (m := _EVO_RE.match(k)) and m.group(1) == stack)
+    c_m, c_e = shape("embedder.linear_msa_m.weight")[0], \
+        shape("embedder.linear_extra.weight")[0]
+    heads = shape("evoformer.0.row_attn.to_b.weight")[0]
+    extra_heads = shape("extra_msa.0.row_attn.to_b.weight")[0]
+    return AF2Config(
+        c_m=c_m, c_z=shape("embedder.linear_relpos.weight")[0], c_e=c_e,
+        c_s=shape("linear_single.weight")[0],
+        evoformer_blocks=blocks("evoformer"), extra_blocks=blocks("extra_msa"),
+        msa_heads=heads,
+        msa_head_dim=shape("evoformer.0.row_attn.to_gate.weight")[0] // heads,
+        extra_heads=extra_heads,
+        extra_head_dim=shape("extra_msa.0.row_attn.to_gate.weight")[0]
+        // extra_heads,
+        outer=shape("evoformer.0.outer_product_mean.linear_a.weight")[0],
+        transition=shape("evoformer.0.msa_transition.linear1.weight")[0]
+        // c_m,
+        max_relative=(shape("embedder.linear_relpos.weight")[1] - 1) // 2,
+        recycle_bins=shape("recycling.linear_dist.weight")[1],
+        dist_bins=shape("distogram.weight")[0],
+        plddt_hidden=shape("plddt.1.weight")[0],
+        plddt_bins=shape("plddt.5.weight")[0])
+
+
+def build_af2(state: Mapping[str, torch.Tensor], device,
+              dtype=None) -> AlphaFold2:
+    """AlphaFold2 on `device` in eval mode, sizes from the keys; with
+    dtype (torch.bfloat16) the weights cast by cast_params."""
+    return _build(AlphaFold2, {"cfg": af2_config_of(state)}, state, device,
+                  dtype)
+
+
+def init_af2_state_dict(seed: int, cfg: AF2Config = AF2Config()
+                        ) -> Dict[str, torch.Tensor]:
+    """Seeded random AlphaFold2 weights (init_state_dict's draw), as CPU
+    tensors."""
+    with torch.device("meta"):
+        shapes = _shapes(AlphaFold2(cfg))
+    return {k: torch.from_numpy(v)
+            for k, v in _random_weights(shapes, seed).items()}

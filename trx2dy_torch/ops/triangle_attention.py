@@ -12,7 +12,10 @@ accuracy; see the source). Column-wise attention is the same function on
 exchanged row and position axes of q, k, v and out, with the bias
 untransposed; the wrapper passes swapped strides, so no transposed copy is
 made. The bias may have any strides; a head-major one (the trunk's) is read
-contiguously.
+contiguously. Row-wise, the rows need not number L: q, k, v and out may be
+(R, L, H, D) for any R >= 1, which is the MSA row attention with pair bias
+of AlphaFold2's Evoformer (R the MSA's depth, the bias (L, L, H) from the
+pair representation). Column-wise calls keep R = L.
 
 `tri_attn_core` launches the kernel for CUDA tensors (or raises) and takes
 the plain version only for CPU tensors. `tri_attn_core.launches` counts
@@ -34,7 +37,8 @@ D_HEAD = 32
 def tri_attn_core_plain(q, k, v, bias, wise: str):
     """The logits path of trx2dy/models/predictor2d.py:206-216 in torch.
 
-    q, k, v: (L, L, H, D); bias: (L, L, H). Returns (L, L, H, D)."""
+    q, k, v: (R, L, H, D), R = L column-wise; bias: (L, L, H). Returns
+    (R, L, H, D)."""
     scale = q.shape[-1] ** 0.5
     if wise == "row":
         attn = torch.softmax(
@@ -54,19 +58,28 @@ def _lib():
     lib = _build.load("triangle_attention")
     fn = lib.trx2dy_tri_attn_fwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                        + [ctypes.c_longlong] * 11 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
-def _check(q, k, v, bias):
+def _check(q, k, v, bias, wise: str = "row"):
+    if q.dim() != 4 or q.shape[-1] != D_HEAD or 0 in q.shape:
+        raise ValueError(f"q must be (R, L, H, {D_HEAD}), got "
+                         f"{tuple(q.shape)}")
+    R, L, H, _ = q.shape
+    if wise == "col" and R != L:
+        raise ValueError(f"column-wise q must be (L, L, H, {D_HEAD}), got "
+                         f"{tuple(q.shape)}")
+    if R > 65535 or L > 65535:
+        raise ValueError(f"at most 65535 rows and positions, got "
+                         f"{tuple(q.shape)}")
+    if bias.shape != (L, L, H):
+        raise ValueError(f"bias must be {(L, L, H)}, got {tuple(bias.shape)}")
     if q.device.type != "cuda":
         raise ValueError(f"tri_attn_core: tensors must be on a CUDA device, "
                          f"got {q.device}")
-    L, L2, H, D = q.shape
-    if L != L2 or D != D_HEAD:
-        raise ValueError(f"q must be (L, L, H, {D_HEAD}), got {tuple(q.shape)}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device or t.dtype != torch.float32:
             raise ValueError(f"{name} must be float32 on {q.device}, got "
@@ -74,7 +87,7 @@ def _check(q, k, v, bias):
         if t.shape != q.shape:
             raise ValueError(f"{name} shape {tuple(t.shape)} != q shape "
                              f"{tuple(q.shape)}")
-        if t.stride(3) != 1 or t.stride(2) != D:
+        if t.stride(3) != 1 or t.stride(2) != D_HEAD:
             raise ValueError(f"{name} needs contiguous (H, D) trailing axes, "
                              f"strides {t.stride()}")
         if t.data_ptr() % 16 or t.stride(0) % 4 or t.stride(1) % 4:
@@ -82,8 +95,6 @@ def _check(q, k, v, bias):
                              f"position, head) vector")
     if bias.device != q.device or bias.dtype != torch.float32:
         raise ValueError(f"bias must be float32 on {q.device}")
-    if bias.shape != (L, L, H):
-        raise ValueError(f"bias must be {(L, L, H)}, got {tuple(bias.shape)}")
 
 
 def needs_grad(*tensors) -> bool:
@@ -92,10 +103,10 @@ def needs_grad(*tensors) -> bool:
 
 
 def tri_attn_core(q, k, v, bias, wise: str):
-    """Row- or column-wise triangle attention core, (L, L, H, D) out.
+    """Row- or column-wise triangle attention core, (R, L, H, D) out.
 
-    q, k, v: (L, L, H, D=32) float32, any strides on the first two axes;
-    bias: (L, L, H) float32. CPU tensors take the plain version; CUDA
+    q, k, v: (R, L, H, D=32) float32, any strides on the first two axes,
+    any R >= 1 row-wise and R = L column-wise; bias: (L, L, H) float32. CPU tensors take the plain version; CUDA
     tensors launch the kernel or raise, also where a gradient is needed
     (the kernel has no backward)."""
     if q.device.type == "cpu":
@@ -106,20 +117,20 @@ def tri_attn_core(q, k, v, bias, wise: str):
             "needs its gradient; run inference under torch.no_grad() or "
             "torch.inference_mode(), or take the logits path "
             "(Predictor2D(..., use_flash=False), as training does)")
-    _check(q, k, v, bias)
     if wise not in ("row", "col"):
         raise ValueError(f"wise must be 'row' or 'col', got {wise!r}")
+    _check(q, k, v, bias, wise)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     views = (q, k, v, out)
     if wise == "col":   # column l becomes the kernel's row axis
         views = tuple(t.transpose(0, 1) for t in views)
     qv, kv, vv, ov = views
-    L, _, H, D = q.shape
+    R, L, H, D = q.shape
     fn = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(qv.data_ptr(), kv.data_ptr(), vv.data_ptr(),
-                 bias.data_ptr(), ov.data_ptr(), L, H, D,
+                 bias.data_ptr(), ov.data_ptr(), R, L, H, D,
                  qv.stride(0), qv.stride(1), kv.stride(0), kv.stride(1),
                  vv.stride(0), vv.stride(1), ov.stride(0), ov.stride(1),
                  bias.stride(0), bias.stride(1), bias.stride(2), stream)
