@@ -16,7 +16,10 @@ Phases; any failure exits non-zero and no phase is skipped:
      the card's data sheet gives. Triangle attention row- and column-wise
      (held to TRI_ATTN_TOL, with the bias as the trunk lays it out and as
      an (L, L, H) array), and row-wise over MSA_ROW_SHAPE's rows of an
-     MSA, as AlphaFold2's Evoformer calls it; the spline restraint energy's dense entry, all
+     MSA, as AlphaFold2's Evoformer calls it; each also with bf16 q, k, v
+     and bias (the bf16 kernel, against float64 of the same values; also
+     with a float32 bias), both launch counters checked; the spline
+     restraint energy's dense entry, all
      four knot grids in one launch, at (B, L) = (50, 150) and (3, 37),
      bit-identical on a repeat, its fused pair entry, all four knot
      grids in one launch, at the bucketed pair counts of a full L=150 mask
@@ -106,14 +109,15 @@ Phases; any failure exits non-zero and no phase is skipped:
      CLI upgrades as it loads): a synthetic a3m of E2E_ROWS rows at
      L = E2E_L, filtered to filter500.a3m, -nrows 500 -nrec 3; at the
      CLI's default (bf16 weights) and with --no-bf16, each exactly
-     E2E_LAUNCHES triangle attention launches, the four files checked
+     E2E_LAUNCHES triangle attention launches (the bf16 run's all of the
+     bf16 kernel, the float32 run's none), the four files checked
      (probability maps of 37/25/25/13 bins summing to 1 within
      E2E_NORM_TOL, pLDDT finite in [0, 1], a PDB of L residues with pLDDT
      B-factors, plddt.csv); the float32 run recomputed with the plain
      attention on the card: probabilities within PLAIN_PATH_TOL, pLDDT
      within E2E_PLDDT_TOL, CA within E2E_CA_TOL; the kernel held to
      float64 within TRI_ATTN_TOL x max(1, max |v|) on the first and the
-     last float32 inputs the bf16 run gave it; reported: the bf16 run
+     last bf16 inputs the bf16 run gave it (its bf16 kernel); reported: the bf16 run
      against float32 and against itself on the plain attention, and each
      map's saturation (median largest probability, share of pairs whose
      most probable bin differs). Wall per run split into MSA filter,
@@ -334,12 +338,12 @@ SPLIT_MAP_TOL = 1e-2
 SINGLE_ITERS = 15
 
 # Data-sheet peaks: float32 outside the tensor cores, memory rate, dense
-# TF32 on the tensor cores.
+# TF32 and dense bf16 on the tensor cores.
 DATASHEETS = {
-    "H100 PCIe": (51e12, 2.0e12, 378e12),
-    "H100 NVL": (60e12, 3.9e12, 417e12),
-    "H200": (67e12, 4.8e12, 495e12),
-    "H100 SXM": (67e12, 3.35e12, 495e12),
+    "H100 PCIe": (51e12, 2.0e12, 378e12, 756e12),
+    "H100 NVL": (60e12, 3.9e12, 417e12, 835e12),
+    "H200": (67e12, 4.8e12, 495e12, 989e12),
+    "H100 SXM": (67e12, 3.35e12, 495e12, 989e12),
 }
 
 
@@ -412,16 +416,19 @@ def kernel_device_ms(fn, kernel: str, iters: int = 20):
 # --------------------------------------------------------------------------
 
 def tri_attn_inputs(L: int, dev, seed: int, rows: int = None,
-                    heads: int = HEADS):
+                    heads: int = HEADS, dtype=torch.float32):
     """q, k, v as the trunk makes them (views into one (rows, L, 3 H D)
     qkv projection; rows L unless given), and the (L, L, H) bias as the
-    trunk makes it: a view of a head-major (H, L, L) array."""
+    trunk makes it: a view of a head-major (H, L, L) array; normal
+    float32 values rounded to dtype."""
     rows = L if rows is None else rows
     gen = torch.Generator().manual_seed(seed)
-    qkv = torch.randn(rows, L, 3 * heads * HEAD_DIM, generator=gen).to(dev)
+    qkv = torch.randn(rows, L, 3 * heads * HEAD_DIM, generator=gen) \
+        .to(dev, dtype)
     q, k, v = (t.reshape(rows, L, heads, HEAD_DIM)
                for t in torch.chunk(qkv, 3, dim=-1))
-    bias = torch.randn(heads, L, L, generator=gen).to(dev).permute(1, 2, 0)
+    bias = torch.randn(heads, L, L, generator=gen).to(dev, dtype) \
+        .permute(1, 2, 0)
     return q, k, v, bias
 
 
@@ -453,6 +460,90 @@ def tri_attn_bound_ms(L: int, peaks, rows: int = None,
         else "bytes", 1e3 * t_tf32
 
 
+def tri_attn_bf16_bound_ms(L: int, peaks, rows: int = None,
+                           heads: int = HEADS) -> tuple[float, str]:
+    """(bound, what bounds it) of one launch of the bf16-operand kernel:
+    the products at the dense bf16 rate, or the bytes of bf16 q, k, v and
+    bias read once and the float32 output written once."""
+    rows = L if rows is None else rows
+    flops = 4.0 * rows * L * L * heads * HEAD_DIM
+    nbytes = 2.0 * 3 * rows * L * heads * HEAD_DIM \
+        + 4.0 * rows * L * heads * HEAD_DIM + 2.0 * L * L * heads
+    t_ops, t_bytes = flops / peaks[3], nbytes / peaks[1]
+    return 1e3 * max(t_ops, t_bytes), \
+        "operations" if t_ops >= t_bytes else "bytes"
+
+
+def check_launches(label: str, before: tuple, calls: int,
+                   bf16: bool) -> int:
+    """Both launch counters moved as `calls` launches of one kernel;
+    returns the launches counted."""
+    from trx2dy_torch.ops.triangle_attention import tri_attn_core
+    now = (tri_attn_core.launches, tri_attn_core.launches_bf16)
+    check(now == (before[0] + calls, before[1] + calls * bf16),
+          f"{label}: launches (all, bf16) went {before} -> {now} for "
+          f"{calls} {'bf16' if bf16 else 'float32'} calls")
+    return now[0] - before[0]
+
+
+def tri_attn_bf16_case(dev, peaks, L: int, wise: str, rows=None,
+                       heads: int = HEADS) -> dict:
+    """The bf16-operand kernel on trunk-laid-out bf16 q, k, v with a bf16
+    head-major bias, an (L, L, H) bf16 bias and a float32 bias of the same
+    values, against float64 of those values: one launch a call, within
+    TRI_ATTN_TOL, float32 out."""
+    from trx2dy_torch.ops.triangle_attention import (
+        tri_attn_core, tri_attn_core_plain)
+    label = f"tri_attn bf16 L={L} {wise}" + (f" R={rows}" if rows else "")
+    q, k, v, bias = tri_attn_inputs(L, dev, seed=3 * L + (rows or 0),
+                                    rows=rows, heads=heads,
+                                    dtype=torch.bfloat16)
+    biases = {"head_major": bias, "ijh": bias.contiguous(),
+              "f32": bias.float()}
+    before = (tri_attn_core.launches, tri_attn_core.launches_bf16)
+    outs = {name: tri_attn_core(q, k, v, b, wise)
+            for name, b in biases.items()}
+    torch.cuda.synchronize()
+    launches = check_launches(label, before, len(biases), bf16=True)
+    check(all(o.dtype == torch.float32 for o in outs.values()),
+          f"{label}: output is not float32")
+    ref = tri_attn_core_plain(q.double(), k.double(), v.double(),
+                              bias.double(), wise)
+    check(all(bool(torch.isfinite(o).all()) for o in outs.values()),
+          f"{label}: non-finite output")
+    errs = {name: (o.double() - ref).abs().max().item()
+            for name, o in outs.items()}
+    err = max(errs.values())
+    check(err <= TRI_ATTN_TOL, f"{label}: max abs err {errs} > "
+                               f"{TRI_ATTN_TOL}")
+    lib_err = None if rows else \
+        (sdpa_tri_attn(q, k, v, bias, wise).double() - ref).abs().max().item()
+    del ref, outs
+    row = {"kernel": "tri_attn_fwd.bf16" if rows is None
+           else "tri_attn_fwd.msa_row.bf16", "dtype": "bf16", "L": L,
+           "wise": "msa_row" if rows else wise, "calls": len(biases),
+           "launches": launches, "max_abs_err": err,
+           "max_abs_err_by_bias": errs,
+           "kernel_ms": time_ms(lambda: tri_attn_core(q, k, v, bias, wise))}
+    if rows is None:
+        row.update({
+            "kernel_ms_ijh_bias": time_ms(
+                lambda: tri_attn_core(q, k, v, biases["ijh"], wise)),
+            "kernel_ms_f32_bias": time_ms(
+                lambda: tri_attn_core(q, k, v, biases["f32"], wise)),
+            "plain_ms": time_ms(
+                lambda: tri_attn_core_plain(q, k, v, bias, wise)),
+            "library_ms": time_ms(
+                lambda: sdpa_tri_attn(q, k, v, bias, wise)),
+            "library_err": lib_err})
+    else:
+        row.update({"R": rows, "H": heads})
+    row["bound_ms"], row["bound_by"] = tri_attn_bf16_bound_ms(
+        L, peaks, rows=rows, heads=heads)
+    print("tri_attn " + json.dumps(row), flush=True)
+    return row
+
+
 def kernel_phase(dev, peaks, lengths=KERNEL_LENGTHS):
     from trx2dy_torch.ops.triangle_attention import (
         tri_attn_core, tri_attn_core_plain)
@@ -461,12 +552,11 @@ def kernel_phase(dev, peaks, lengths=KERNEL_LENGTHS):
         q, k, v, bias = tri_attn_inputs(L, dev, seed=L)
         bias_ijh = bias.contiguous()                 # (L, L, H) layout
         for wise in ("row", "col"):
-            before = tri_attn_core.launches
+            before = (tri_attn_core.launches, tri_attn_core.launches_bf16)
             out = tri_attn_core(q, k, v, bias, wise)
             out_ijh = tri_attn_core(q, k, v, bias_ijh, wise)
             torch.cuda.synchronize()
-            check(tri_attn_core.launches == before + 2,
-                  f"tri_attn L={L} {wise}: launch counter did not advance")
+            check_launches(f"tri_attn L={L} {wise}", before, 2, bf16=False)
             ref = tri_attn_core_plain(q.double(), k.double(), v.double(),
                                       bias.double(), wise)
             check(bool(torch.isfinite(out).all()),
@@ -480,7 +570,8 @@ def kernel_phase(dev, peaks, lengths=KERNEL_LENGTHS):
                 .abs().max().item()
             del ref
             row = {
-                "L": L, "wise": wise, "max_abs_err": err,
+                "kernel": "tri_attn_fwd", "dtype": "f32", "L": L,
+                "wise": wise, "max_abs_err": err,
                 "kernel_ms": time_ms(
                     lambda: tri_attn_core(q, k, v, bias, wise)),
                 "kernel_ms_ijh_bias": time_ms(
@@ -495,7 +586,10 @@ def kernel_phase(dev, peaks, lengths=KERNEL_LENGTHS):
                 tri_attn_bound_ms(L, peaks)
             print("tri_attn " + json.dumps(row), flush=True)
             rows.append(row)
+            rows.append(tri_attn_bf16_case(dev, peaks, L, wise))
     rows.append(msa_row_case(dev, peaks))
+    R, L, H = MSA_ROW_SHAPE
+    rows.append(tri_attn_bf16_case(dev, peaks, L, "row", rows=R, heads=H))
     return rows
 
 
@@ -507,11 +601,11 @@ def msa_row_case(dev, peaks, shape=MSA_ROW_SHAPE) -> dict:
         tri_attn_core, tri_attn_core_plain)
     R, L, H = shape
     q, k, v, bias = tri_attn_inputs(L, dev, seed=R + L, rows=R, heads=H)
-    before = tri_attn_core.launches
+    before = (tri_attn_core.launches, tri_attn_core.launches_bf16)
     out = tri_attn_core(q, k, v, bias, "row")
     torch.cuda.synchronize()
-    check(tri_attn_core.launches == before + 1,
-          f"tri_attn msa_row {shape}: launch counter did not advance by 1")
+    launches = check_launches(f"tri_attn msa_row {shape}", before, 1,
+                              bf16=False)
     check(bool(torch.isfinite(out).all()),
           f"tri_attn msa_row {shape}: non-finite output")
     ref = tri_attn_core_plain(q.double(), k.double(), v.double(),
@@ -520,7 +614,9 @@ def msa_row_case(dev, peaks, shape=MSA_ROW_SHAPE) -> dict:
     del ref
     check(err <= TRI_ATTN_TOL,
           f"tri_attn msa_row {shape}: max abs err {err} > {TRI_ATTN_TOL}")
-    row = {"R": R, "L": L, "H": H, "wise": "msa_row", "max_abs_err": err,
+    row = {"kernel": "tri_attn_fwd.msa_row", "dtype": "f32", "R": R,
+           "L": L, "H": H, "wise": "msa_row", "calls": 1,
+           "launches": launches, "max_abs_err": err,
            "kernel_ms": time_ms(lambda: tri_attn_core(q, k, v, bias, "row"))}
     row["bound_ms"], row["bound_by"], row["bound_ms_3xtf32"] = \
         tri_attn_bound_ms(L, peaks, rows=R, heads=H)
@@ -2081,7 +2177,7 @@ def e2e_phase(dev, work: Path, L=E2E_L, rows=E2E_ROWS, nrows=E2E_NROWS,
         timings = []
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-        tri_attn_core.launches = 0
+        tri_attn_core.launches = tri_attn_core.launches_bf16 = 0
         kernel_core, p2d.tri_attn_core = p2d.tri_attn_core, core
         try:
             t0 = time.perf_counter()
@@ -2093,12 +2189,12 @@ def e2e_phase(dev, work: Path, L=E2E_L, rows=E2E_ROWS, nrows=E2E_NROWS,
             wall = time.perf_counter() - t0
         finally:
             p2d.tri_attn_core = kernel_core
-        launched = tri_attn_core.launches
         req = {"run": tag, "L": L, "rows": rows, "nrows": nrows,
                "recycles": recycles, "wall_s": wall,
                "stages_s": {k: v for k, v in timings},
                "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
-               "tri_attn_launches": launched}
+               "tri_attn_launches": tri_attn_core.launches,
+               "tri_attn_launches_bf16": tri_attn_core.launches_bf16}
         print("e2e " + json.dumps(req), flush=True)
         arrays = check_e2e_files(out_dir, L, nrows)
         arrays["ca"] = res["atom14"][:, 1].double().cpu().numpy()
@@ -2127,22 +2223,23 @@ def e2e_phase(dev, work: Path, L=E2E_L, rows=E2E_ROWS, nrows=E2E_NROWS,
         f32, req_f32 = run("f32", "--no-bf16")
     finally:
         p2d.Predictor2D.forward = trunk_forward
-    for req in (req_bf16, req_f32):
-        check(req["tri_attn_launches"] == expected,
-              f"e2e {req['run']}: {req['tri_attn_launches']} attention "
-              f"launches, expected {expected}")
+    for req, bf16_launches in ((req_bf16, expected), (req_f32, 0)):
+        got = (req["tri_attn_launches"], req["tri_attn_launches_bf16"])
+        check(got == (expected, bf16_launches),
+              f"e2e {req['run']}: {got} attention launches (all, bf16), "
+              f"expected {(expected, bf16_launches)}")
     plain, req_plain = run("plain", "--no-bf16", core=tri_attn_core_plain)
     bf16_plain, req_bf16_plain = run("bf16_plain", core=tri_attn_core_plain)
     for req in (req_plain, req_bf16_plain):
         check(req["tri_attn_launches"] == 0,
               f"e2e {req['run']}: the kernel launched on the plain path")
 
-    # the kernel on the bf16 run's own inputs (float32 by then), against
-    # float64, as the kernel phase holds it on random inputs
+    # the kernel on the bf16 run's own inputs (bf16, as the products gave
+    # them), against float64, as the kernel phase holds it on random inputs
     bf16_inputs_err = {}
     for which in ("first", "last"):
         q, k, v, bias, wise = seen[which]
-        check(all(t.dtype == torch.float32 for t in (q, k, v, bias)),
+        check(all(t.dtype == torch.bfloat16 for t in (q, k, v, bias)),
               f"e2e bf16: the attention kernel was given "
               f"{[t.dtype for t in (q, k, v, bias)]}")
         ref = tri_attn_core_plain(q.double(), k.double(), v.double(),
@@ -2188,7 +2285,8 @@ def e2e_phase(dev, work: Path, L=E2E_L, rows=E2E_ROWS, nrows=E2E_NROWS,
           f"e2e: CA differs from the plain path by {d['ca']} A")
     return {"runs": [req_bf16, req_f32, req_plain, req_bf16_plain], **out,
             "tri_attn_launches": req_bf16["tri_attn_launches"]
-            + req_f32["tri_attn_launches"]}
+            + req_f32["tri_attn_launches"],
+            "tri_attn_launches_bf16": req_bf16["tri_attn_launches_bf16"]}
 
 
 # --------------------------------------------------------------------------
@@ -3050,17 +3148,22 @@ def parallel_phase(dev, work: Path, fold_a: dict) -> dict:
                                         for r in fold_ranks)}
 
 
-def kernel_summary(kernel_rows, spline_rows, attn_paths: dict, folds,
-                   run_single=None, chain_fold=None,
-                   parallel=None) -> list:
+def kernel_summary(kernel_rows, spline_rows, attn_paths: dict,
+                   attn_paths_bf16: dict, folds, run_single=None,
+                   chain_fold=None, parallel=None) -> list:
     """The `kernels` line: every kernel with its launches on the main path
-    (in all and by path), its error, its times and its bound. attn_paths:
-    the attention launches by path; folds: phase 5's requests and phase
-    10's one-process folds."""
-    at_max = [r for r in kernel_rows if r["L"] == max(KERNEL_LENGTHS)
-              and r["wise"] != "msa_row"]
-    msa_row = next(r for r in kernel_rows if r["wise"] == "msa_row")
-    mean = lambda key: sum(r[key] for r in at_max) / len(at_max)
+    (in all and by path), its error, its times and its bound. attn_paths,
+    attn_paths_bf16: the float32 and the bf16 attention kernel's launches
+    by path; folds: phase 5's requests and phase 10's one-process
+    folds."""
+    by_kernel = lambda name: [r for r in kernel_rows if r["kernel"] == name]
+    at_max = [r for r in by_kernel("tri_attn_fwd")
+              if r["L"] == max(KERNEL_LENGTHS)]
+    bf16_at_max = [r for r in by_kernel("tri_attn_fwd.bf16")
+                   if r["L"] == max(KERNEL_LENGTHS)]
+    msa_row, = by_kernel("tri_attn_fwd.msa_row")
+    msa_row_bf16, = by_kernel("tri_attn_fwd.msa_row.bf16")
+    mean = lambda key, rows=at_max: sum(r[key] for r in rows) / len(rows)
     kernels = [{
         "name": "tri_attn_fwd",
         "route": "cuda",
@@ -3068,7 +3171,8 @@ def kernel_summary(kernel_rows, spline_rows, attn_paths: dict, folds,
         "replaces": "trx2dy/ops/triangle_attention.py:38",
         "launches": sum(attn_paths.values()),
         "launches_by_path": attn_paths,
-        "max_abs_err": max(r["max_abs_err"] for r in kernel_rows),
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in by_kernel("tri_attn_fwd")),
         "ms": mean("kernel_ms"),
         "kernel_ms": mean("kernel_ms"),
         "wrapper_ms": mean("kernel_ms"),
@@ -3080,8 +3184,8 @@ def kernel_summary(kernel_rows, spline_rows, attn_paths: dict, folds,
         "library_ms": mean("library_ms"),
         "shape": f"L={max(KERNEL_LENGTHS)}, H={HEADS}, D={HEAD_DIM}, f32; "
                  "launches: the geometry requests', the e2e predictor's "
-                 f"bf16 and f32 runs ({E2E_LAUNCHES} each; its bf16 path "
-                 "upcasts q, k, v and the bias to this f32 kernel), the "
+                 f"f32 run ({E2E_LAUNCHES}; its bf16 run's go to the bf16 "
+                 "kernel, tri_attn_fwd.bf16), the "
                  "trained checkpoint's request (training itself takes the "
                  "logits path: the kernel has no backward) and the "
                  f"L={PARALLEL_REQUEST_L} request's trunk on "
@@ -3098,7 +3202,8 @@ def kernel_summary(kernel_rows, spline_rows, attn_paths: dict, folds,
         "route": "cuda",
         "source": "trx2dy_torch/csrc/triangle_attention.cu",
         "replaces": "trx2dy/ops/triangle_attention.py:38",
-        "launches": 1,
+        "launches": msa_row["launches"],
+        "calls": msa_row["calls"],
         "max_abs_err": msa_row["max_abs_err"],
         "ms": msa_row["kernel_ms"],
         "kernel_ms": msa_row["kernel_ms"],
@@ -3109,9 +3214,55 @@ def kernel_summary(kernel_rows, spline_rows, attn_paths: dict, folds,
                  f"H={msa_row['H']}, D={HEAD_DIM}, f32, row-wise with an "
                  "(L, L, H) pair bias: AlphaFold2's MSA row attention (192 "
                  "launches a target at its cell's 4 cycles, none on this "
-                 "smoke's main path); the kernel by CUDA events; bound_ms "
+                 "smoke's main path; launches: those counted over the "
+                 "check's calls); the kernel by CUDA events; bound_ms "
                  "counts 4 R L^2 H D f32 operations and the bytes of q, k, "
                  "v, the output and the bias",
+    }, {
+        "name": "tri_attn_fwd.bf16",
+        "route": "cuda",
+        "source": "trx2dy_torch/csrc/triangle_attention.cu "
+                  "(tri_attn_fwd_kernel_bf16)",
+        "replaces": "trx2dy/ops/triangle_attention.py:38",
+        "launches": sum(attn_paths_bf16.values()),
+        "launches_by_path": attn_paths_bf16,
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in by_kernel("tri_attn_fwd.bf16")),
+        "ms": mean("kernel_ms", bf16_at_max),
+        "kernel_ms": mean("kernel_ms", bf16_at_max),
+        "kernel_ms_ijh_bias": mean("kernel_ms_ijh_bias", bf16_at_max),
+        "kernel_ms_f32_bias": mean("kernel_ms_f32_bias", bf16_at_max),
+        "plain_ms": mean("plain_ms", bf16_at_max),
+        "library_ms": mean("library_ms", bf16_at_max),
+        "bound_ms": bf16_at_max[0]["bound_ms"],
+        "bound_by": bf16_at_max[0]["bound_by"],
+        "shape": f"L={max(KERNEL_LENGTHS)}, H={HEADS}, D={HEAD_DIM}, bf16 "
+                 "q, k, v and head-major bias (kernel_ms_ijh_bias: an "
+                 "(L, L, H) bf16 bias; kernel_ms_f32_bias: a float32 one), "
+                 "float32 out; held to float64 of the same values; the "
+                 "mean of the row- and column-wise calls by CUDA events; "
+                 "bound_ms: the products at the dense bf16 rate or the "
+                 "bytes (bf16 in, float32 out); library: "
+                 "scaled_dot_product_attention in bf16",
+    }, {
+        "name": "tri_attn_fwd.msa_row.bf16",
+        "route": "cuda",
+        "source": "trx2dy_torch/csrc/triangle_attention.cu "
+                  "(tri_attn_fwd_kernel_bf16)",
+        "replaces": "trx2dy/ops/triangle_attention.py:38",
+        "launches": msa_row_bf16["launches"],
+        "calls": msa_row_bf16["calls"],
+        "max_abs_err": msa_row_bf16["max_abs_err"],
+        "ms": msa_row_bf16["kernel_ms"],
+        "kernel_ms": msa_row_bf16["kernel_ms"],
+        "bound_ms": msa_row_bf16["bound_ms"],
+        "bound_by": msa_row_bf16["bound_by"],
+        "shape": f"R={msa_row_bf16['R']} MSA rows, L={msa_row_bf16['L']}, "
+                 f"H={msa_row_bf16['H']}, D={HEAD_DIM}, bf16 q, k, v and "
+                 "pair bias, row-wise: AlphaFold2's MSA row attention as "
+                 "its bf16 cell calls it (192 launches a target); "
+                 "launches: those counted over the check's calls, one a "
+                 "bias layout (head-major and (L, L, H) bf16, float32)",
     }]
     B, L = SPLINE_SHAPES[0]
     dense_rows = [r for r in spline_rows if r["entry"] == "dense"]
@@ -3267,12 +3418,15 @@ def main() -> int:
         shutil.rmtree(WORK, ignore_errors=True)
 
     attn_paths = {"geometry requests": launches,
-                  "e2e requests": e2e["tri_attn_launches"],
+                  "e2e f32 request": e2e["tri_attn_launches"]
+                  - e2e["tri_attn_launches_bf16"],
                   "trained checkpoint's request":
                       trained["tri_attn_launches"],
                   f"sharded trunk on {PARALLEL_RANKS} ranks":
                       par["tri_attn_launches"]}
     kernels = kernel_summary(kernel_rows, spline_rows, attn_paths,
+                             {"e2e bf16 request":
+                              e2e["tri_attn_launches_bf16"]},
                              folds + par["single"], run, chain, par)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -19,9 +19,12 @@ after a 256 MB write that flushes the L2 before every launch, as a fold
 finds it after the ~600 small launches between two evaluations).
 Variants are timed in turns, shipped first and last.
 
-    python3 scripts/kernel_variants.py [tri] [pairs] [lanes] [dense]
+    python3 scripts/kernel_variants.py [tri] [tri_bf16] [pairs] [lanes] [dense]
 
-(no argument: all four).
+(no argument: all five). tri_bf16: the bf16-operand kernel's variants on
+bf16 inputs at AlphaFold2's MSA-row launch (R, L, H) = (512, 368, 8) and
+at a triangle launch (400, 400, 4), beside the float32 kernel on the same
+values.
 """
 from __future__ import annotations
 
@@ -107,6 +110,181 @@ TRI = {
         ("      uint32_t phi[4], plo[4];",
          "      if (j0 + ks * 8 >= L) continue;   // p is 0 past L\n"
          "      uint32_t phi[4], plo[4];")],
+}
+# The bf16-operand kernel (tri_attn_fwd_kernel_bf16)
+PSPLIT_SHIPPED = """      float rest[8], last[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        rest[e] = p[e] - bf16_trunc(p[e]);          // exact
+        last[e] = rest[e] - bf16_trunc(rest[e]);    // exact, <= 8 bits
+      }
+      uint32_t phi[4], pmid[4], plo[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        phi[i] = bf16_pair(p[2 * i], p[2 * i + 1]);
+        pmid[i] = bf16_pair(rest[2 * i], rest[2 * i + 1]);
+        plo[i] = bf16_pair(last[2 * i], last[2 * i + 1]);
+      }"""
+PSPLIT_TWO_NEAREST = """      uint32_t phi[4], pmid[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        asm("cvt.rn.bf16x2.f32 %0, %1, %2;\\n"
+            : "=r"(phi[i]) : "f"(p[2 * i + 1]), "f"(p[2 * i]));
+        const float r0 = p[2 * i] - __uint_as_float(phi[i] << 16);
+        const float r1 = p[2 * i + 1] - __uint_as_float(phi[i] & 0xffff0000u);
+        asm("cvt.rn.bf16x2.f32 %0, %1, %2;\\n"
+            : "=r"(pmid[i]) : "f"(r1), "f"(r0));
+      }"""
+# wgmma for both products: K and V tiles in shared memory as 8 x 16-byte
+# core matrices (an 8-key group's four 16-byte chunks of d one after the
+# other), q and P as register A operands, V read transposed (MN-major)
+WG_HELPERS = r"""// wgmma: shared-memory matrix descriptor (no swizzle), the accumulator
+// fences and an m64n32k16 product with A from registers
+__device__ __forceinline__ uint64_t wg_desc(uint32_t s, uint32_t lbo,
+                                            uint32_t sbo) {
+  return (uint64_t)((s & 0x3ffff) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+__device__ __forceinline__ void wg_keep(float (&d)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+f"(d[i][j])::"memory");
+}
+__device__ __forceinline__ void wg_fence(float (&d)[4][4]) {
+  wg_keep(d);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs(float (&d)[4][4],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc),
+        "n"(TRANS_B));
+}
+
+// 2^x, results below 2^-126 flushed to 0"""
+
+
+# descriptors: K (K-major) leading byte offset 128 (the next 8 d), stride 512
+# (the next 8 keys); V (MN-major, transposed) leading 512 (the next 8 keys),
+# stride 128 (the next 8 d)
+WGMMA_EDITS = [
+        ("// 2^x, results below 2^-126 flushed to 0", WG_HELPERS),
+        ("    c_dst[c] = ring_s + 2 * (c_jj[c] * BF_SROW + col);",
+         "    c_dst[c] = ring_s + (c_jj[c] >> 3) * 512 + (col >> 3) * 128 +\n"
+         "               (c_jj[c] & 7) * 16;"),
+        ("    cp_async_wait1();              // this step's tiles landed\n",
+         "    cp_async_wait1();              // this step's tiles landed\n"
+         "    asm volatile(\"fence.proxy.async.shared::cta;\\n\" ::: "
+         "\"memory\");\n"),
+        ("""#pragma unroll
+    for (int nt = 0; nt < BF_BK / 8; ++nt) {
+      uint32_t kb[4];
+      ldsm_x4(kb, ks + 2 * nt * 8 * BF_SROW);
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      mma_bf16(acc, qf[0], kb[0], kb[1]);
+      mma_bf16(acc, qf[1], kb[2], kb[3]);
+""", """    float sacc[BF_BK / 8][4];
+    wg_fence(sacc);
+    wgmma_rs<0>(sacc, qf[0], wg_desc(ring_s + stage, 128, 512), 0);
+    wgmma_rs<0>(sacc, qf[1], wg_desc(ring_s + stage + 256, 128, 512), 1);
+    wg_commit();
+    wg_wait0();
+    wg_keep(sacc);
+#pragma unroll
+    for (int nt = 0; nt < BF_BK / 8; ++nt) {
+      const float (&acc)[4] = sacc[nt];
+"""),
+        ("""      uint32_t vb[2][4];
+      ldsm_x4_trans(vb[0], vs + 2 * kk * 16 * BF_SROW);
+      ldsm_x4_trans(vb[1], vs + 2 * (kk * 16 * BF_SROW + 16));
+""", ""),
+        ("""#pragma unroll
+      for (int dn = 0; dn < D / 8; ++dn) {
+        const uint32_t b0 = vb[dn >> 1][(dn & 1) * 2];
+        const uint32_t b1 = vb[dn >> 1][(dn & 1) * 2 + 1];
+        mma_bf16(pv_lo[dn], plo, b0, b1);
+        mma_bf16(pv_lo[dn], pmid, b0, b1);
+        mma_bf16(pv_hi[dn], phi, b0, b1);
+      }
+    }
+""", """      const uint64_t vd = wg_desc(ring_s + stage + 2 * BF_TILE + kk * 1024,
+                                  512, 128);
+      wg_fence(pv_lo);
+      wg_keep(pv_hi);
+      wgmma_rs<1>(pv_lo, plo, vd, kk > 0);
+      wgmma_rs<1>(pv_lo, pmid, vd, 1);
+      wgmma_rs<1>(pv_hi, phi, vd, kk > 0);
+      wg_commit();
+    }
+    wg_wait0();
+    wg_keep(pv_lo);
+    wg_keep(pv_hi);
+""")]
+
+
+TRI_BF16 = {
+    "shipped": [],
+    "P in two bf16 terms (hi and the rest rounded to nearest)": [
+        (PSPLIT_SHIPPED, PSPLIT_TWO_NEAREST),
+        ("        mma_bf16(pv_lo[dn], plo, b0, b1);\n", "")],
+    "one accumulator for the three terms": [
+        ("mma_bf16(pv_lo[dn], plo", "mma_bf16(pv_hi[dn], plo"),
+        ("mma_bf16(pv_lo[dn], pmid", "mma_bf16(pv_hi[dn], pmid")],
+    "64-key tiles (1 block per SM)": [
+        ("constexpr int BF_BK = 32;", "constexpr int BF_BK = 64;"),
+        ("__launch_bounds__(BF_THREADS, 2)",
+         "__launch_bounds__(BF_THREADS, 1)")],
+    "one row stream (4 warps) per block, 3 blocks per SM": [
+        ("constexpr int BF_HALVES = 2;", "constexpr int BF_HALVES = 1;"),
+        ("__launch_bounds__(BF_THREADS, 2)",
+         "__launch_bounds__(BF_THREADS, 3)")],
+    "at most 8 rows per block (G <= 8)": [
+        ("constexpr int BF_ROWS_MAX = 16;", "constexpr int BF_ROWS_MAX = 8;")],
+    "16 rows per block at every shape (G = 16)": [
+        ("constexpr int BF_ROWS_MIN = 8;", "constexpr int BF_ROWS_MIN = 16;")],
+    "the bias pair's keys fetched one by one": [
+        ("  const int pair_loads =\n", "  const int pair_loads = 0 &&\n")],
+    "wgmma m64n32k16 for q.k and the three P.V terms": WGMMA_EDITS,
+    "row sums on the tensor cores (P times a column of ones)": [
+        ("      s[nt][3] = ex2(fmaf(s[nt][3], l2e, nb));\n"
+         "      la += s[nt][0] + s[nt][1];\n"
+         "      lb += s[nt][2] + s[nt][3];\n",
+         "      s[nt][3] = ex2(fmaf(s[nt][3], l2e, nb));\n"),
+        ("    const float na = -ma * l2e, nb = -mb * l2e;\n"
+         "    la *= ca;\n    lb *= cb;\n",
+         "    const float na = -ma * l2e, nb = -mb * l2e;\n"),
+        ("    float pv_hi[D / 8][4], pv_lo[D / 8][4];\n",
+         "    float pv_hi[D / 8][4], pv_lo[D / 8][4];\n"
+         "    float lsum[4] = {0.f, 0.f, 0.f, 0.f};\n"),
+        ("        mma_bf16(pv_hi[dn], phi, b0, b1);\n      }\n    }\n",
+         "        mma_bf16(pv_hi[dn], phi, b0, b1);\n      }\n"
+         "      mma_bf16(lsum, plo, 0x3f803f80u, 0x3f803f80u);\n"
+         "      mma_bf16(lsum, pmid, 0x3f803f80u, 0x3f803f80u);\n"
+         "      mma_bf16(lsum, phi, 0x3f803f80u, 0x3f803f80u);\n    }\n"
+         "    la = fmaf(la, ca, lsum[0]);\n    lb = fmaf(lb, cb, lsum[2]);\n"),
+        ("#pragma unroll\n    for (int w = 1; w < 4; w <<= 1) {\n"
+         "      la += __shfl_xor_sync(0xffffffffu, la, w);\n"
+         "      lb += __shfl_xor_sync(0xffffffffu, lb, w);\n    }\n", "")],
+    "the bias read from device memory for every row": [
+        ("  const int stage = BF_RING_BYTES + staged <= BF_SMEM_MAX;",
+         "  const int stage = 0;")],
 }
 SPLINE = {
     "shipped": [],
@@ -428,11 +606,15 @@ def build_variants(source: str, variants: dict, tag: str = "") -> dict:
 
 
 def tri_fn(lib):
-    fn = lib.trx2dy_tri_attn_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-                   + [ctypes.c_longlong] * 11 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    """The library's (float32, bf16) entries, as ta._lib returns them."""
+    f32, bf16 = lib.trx2dy_tri_attn_fwd, lib.trx2dy_tri_attn_fwd_bf16
+    f32.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                    + [ctypes.c_longlong] * 11 + [ctypes.c_void_p])
+    bf16.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int]
+                     + [ctypes.c_void_p] + [ctypes.c_int] * 4
+                     + [ctypes.c_longlong] * 11 + [ctypes.c_void_p])
+    f32.restype = bf16.restype = ctypes.c_int
+    return f32, bf16
 
 
 def spline_lib(lib):
@@ -576,11 +758,12 @@ def lanes_variants(dev) -> None:
 
 
 _lib_shipped = se._lib
+_tri_lib_shipped = ta._lib
 
 
 def main(argv=None) -> int:
     which = set(sys.argv[1:] if argv is None else argv) or \
-        {"tri", "pairs", "lanes", "dense"}
+        {"tri", "tri_bf16", "pairs", "lanes", "dense"}
     if not torch.cuda.is_available():
         print("kernel_variants: needs a CUDA device", file=sys.stderr)
         return 1
@@ -593,6 +776,8 @@ def main(argv=None) -> int:
     order = lambda d: list(d) + ["shipped"]    # shipped first and last
     if "tri" in which:
         tri_variants(dev, order)
+    if "tri_bf16" in which:
+        tri_bf16_variants(dev, order)
     if "pairs" in which:
         pair_variants(dev, order)
     if "dense" in which:
@@ -608,7 +793,7 @@ def tri_variants(dev, order) -> None:
                                       bias.double(), w).float()
             for w in ("row", "col")}
     for name in order(tri):
-        ta._lib = lambda fn=tri[name]: fn
+        ta._lib = lambda fns=tri[name]: fns
         err = max((ta.tri_attn_core(q, k, v, bias, w) - refs[w]).abs()
                   .max().item() for w in refs)
         ms = sum(cs.time_ms(lambda w=w: ta.tri_attn_core(q, k, v, bias, w),
@@ -617,6 +802,45 @@ def tri_variants(dev, order) -> None:
                                        "variant": name, "max_abs_err": err,
                                        "ms": ms}), flush=True)
     del refs
+    ta._lib = _tri_lib_shipped
+
+
+def tri_bf16_variants(dev, order) -> None:
+    """The bf16 kernel's variants on bf16 inputs at AlphaFold2's MSA-row
+    launch, (R, L, H) = (512, 368, 8), row-wise, and at a triangle launch,
+    (400, 400, 4), the mean of row- and column-wise; beside the float32
+    kernel on the same values (its shipped build)."""
+    tri = {k: tri_fn(v) for k, v in build_variants(
+        "triangle_attention", TRI_BF16, tag="bf16_").items()}
+    cases = {}
+    for shape in ((512, 368, 8), (400, 400, 4)):
+        R, L, H = shape
+        q, k, v, bias = cs.tri_attn_inputs(L, dev, seed=R + L, rows=R,
+                                           heads=H, dtype=torch.bfloat16)
+        wises = ("row",) if R != L else ("row", "col")
+        refs = {w: ta.tri_attn_core_plain(q.double(), k.double(), v.double(),
+                                          bias.double(), w).float()
+                for w in wises}
+        cases[shape] = ((q, k, v, bias), refs)
+
+    def run(name, inputs, refs, shape):
+        err = max((ta.tri_attn_core(*inputs, w) - refs[w]).abs().max()
+                  .item() for w in refs)
+        ms = sum(cs.time_ms(lambda w=w: ta.tri_attn_core(*inputs, w),
+                            iters=20) for w in refs) / len(refs)
+        print("variant " + json.dumps({
+            "kernel": "tri_attn_fwd.bf16", "shape": list(shape),
+            "variant": name, "dtype": str(inputs[0].dtype),
+            "max_abs_err": err, "ms": ms}), flush=True)
+
+    for name in order(tri):
+        ta._lib = lambda fns=tri[name]: fns
+        for shape, (inputs, refs) in cases.items():
+            run(name, inputs, refs, shape)
+    ta._lib = _tri_lib_shipped
+    for shape, (inputs, refs) in cases.items():
+        run("the float32 kernel on the same values",
+            tuple(t.float() for t in inputs), refs, shape)
 
 
 def pair_variants(dev, order) -> None:

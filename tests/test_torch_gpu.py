@@ -41,6 +41,39 @@ def test_cuda_core_raises_under_grad_and_runs_without():
     assert tri_attn_core.launches == before + 1
 
 
+@pytest.mark.gpu
+def test_bf16_kernel_holds_float64_and_float32_keeps_its_kernel():
+    """bf16 q, k, v and bias take the bf16 kernel, one launch a call,
+    within 1e-5 of float64 of the same values: row-wise over AlphaFold2's
+    MSA rows at (R, L, H) = (512, 368, 8) and column-wise at a triangle
+    shape with a ragged edge. Float32 inputs still take the float32
+    kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the CPU takes the plain version")
+    gen = torch.Generator().manual_seed(17)
+    for (R, L, heads), wise in (((512, 368, 8), "row"), ((130, 130, 4),
+                                                         "col")):
+        q, k, v = (torch.randn(R, L, heads, D, generator=gen)
+                   .to("cuda", torch.bfloat16) for _ in range(3))
+        b = torch.randn(heads, L, L, generator=gen) \
+            .to("cuda", torch.bfloat16).permute(1, 2, 0)
+        before = (tri_attn_core.launches, tri_attn_core.launches_bf16)
+        with torch.no_grad():
+            out = tri_attn_core(q, k, v, b, wise)
+        assert (tri_attn_core.launches, tri_attn_core.launches_bf16) == \
+            (before[0] + 1, before[1] + 1)
+        ref = tri_attn_core_plain(q.double(), k.double(), v.double(),
+                                  b.double(), wise)
+        assert out.dtype == torch.float32
+        assert (out.double() - ref).abs().max().item() < 1e-5
+        del ref
+    before = (tri_attn_core.launches, tri_attn_core.launches_bf16)
+    with torch.no_grad():
+        tri_attn_core(q.float(), k.float(), v.float(), b.float(), wise)
+    assert (tri_attn_core.launches, tri_attn_core.launches_bf16) == \
+        (before[0] + 1, before[1])
+
+
 def _two_rank_step(params, batch):
     """One of two gloo ranks sharing the card, the (1, 2) mesh: the
     sharded step's loss and gradients with dropout (rank 0's), then the

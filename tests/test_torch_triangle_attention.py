@@ -148,6 +148,89 @@ def test_3xtf32_split_keeps_float32_accuracy():
         assert ((one - exact).abs() / mag).max() > 1e-4
 
 
+@pytest.mark.parametrize("wise", ["row", "col"])
+def test_plain_core_on_bf16_inputs_is_the_float32_function(wise):
+    """bf16 q, k, v and bias (or a float32 bias) give, bit for bit, what
+    the same values give in float32: the function the bf16 kernel
+    computes."""
+    q, k, v, b = (torch.from_numpy(t).to(torch.bfloat16)
+                  for t in _inputs(6, seed=13))
+    ref = tri_attn_core_plain(q.float(), k.float(), v.float(), b.float(),
+                              wise)
+    for bias in (b, b.float()):
+        out = tri_attn_core_plain(q, k, v, bias, wise)
+        assert out.dtype == torch.float32 and torch.equal(out, ref)
+
+
+def _bf16_trunc(x):
+    """float32 with its low 16 bits cleared (bf16 by truncation), as the
+    bf16 kernel splits P with integers."""
+    return (x.view(torch.int32) & -0x10000).view(torch.float32)
+
+
+def _bf16_kernel_attend(x, v, drop_lo=False, tile=32):
+    """softmax(x) @ v, x in log2 units (rows, keys), v bf16 (keys, D), as
+    the bf16 kernel groups it in float32: per 32-key tile the running max,
+    P = hi + mid + lo split by masks, pv_hi = hi.v and pv_lo = lo.v + mid.v
+    in their own accumulators, then o = fma(o, c, pv_hi + pv_lo) (each
+    product of two float32 is exact in float64, so the FMA is one
+    rounding); drop_lo leaves lo out."""
+    vf = v.float()
+    o = torch.zeros(x.shape[0], vf.shape[1])
+    m = torch.full((x.shape[0], 1), -float("inf"))
+    l = torch.zeros(x.shape[0], 1)
+    for j in range(0, x.shape[1], tile):
+        xt, vt = x[:, j:j + tile], vf[j:j + tile]
+        m_new = torch.maximum(m, xt.max(-1, keepdim=True).values)
+        c, m = torch.exp2(m - m_new), m_new            # 0 on the first tile
+        p = torch.exp2(xt - m)
+        hi = _bf16_trunc(p)
+        mid = _bf16_trunc(p - hi)
+        lo = p - hi - mid
+        for term in (hi, mid, lo):                     # each exact in bf16
+            assert torch.equal(term.to(torch.bfloat16).float(), term)
+        assert torch.equal(hi + mid + lo, p)
+        pv_hi = hi @ vt
+        pv_lo = mid @ vt if drop_lo else lo @ vt + mid @ vt
+        o = (o.double() * c.double() + (pv_hi + pv_lo).double()).float()
+        l = l * c + p.sum(-1, keepdim=True)
+    return o / l
+
+
+def test_bf16_p_split_keeps_float32_accuracy():
+    """The bf16 kernel's P.V, checked where it cannot run: on bf16 q, k, v
+    and a float32 bias (L=96, D=32), its float32 grouping of the three
+    exact bf16 terms of P (hi, mid, lo, each product with bf16 V exact) is
+    within 1e-6 of float64 relative to sum p |v| / sum p, while leaving lo
+    out (the top 16 significant bits of P) is not within 2e-6."""
+    L = 96
+    q, k, v, b = (torch.from_numpy(t) for t in _inputs(L, seed=22))
+    qb, kb, vb = (t[0, :, 0].to(torch.bfloat16) for t in (q, k, v))
+    scale = np.float32(np.log2(np.e) / np.sqrt(D))
+    x = (qb.float() @ kb.float().T) * scale + b[:, :, 0]     # log2 units
+    w = torch.softmax(x.double() * np.log(2.0), dim=-1)
+    exact, mag = w @ vb.double(), w @ vb.double().abs()
+    err = lambda o: ((o.double() - exact).abs() / mag).max().item()
+    assert err(_bf16_kernel_attend(x, vb)) <= 1e-6
+    assert err(_bf16_kernel_attend(x, vb, drop_lo=True)) > 2e-6
+
+
+def test_check_takes_bf16_operands_and_refuses_mixed_dtypes():
+    """bf16 q, k, v pass every check but the device one with a bf16 or a
+    float32 bias; mixed q, k, v dtypes, a bf16 bias with float32 q, k, v
+    and other dtypes are refused for their dtype."""
+    q, k, v, b = (torch.from_numpy(t) for t in _inputs(8, seed=7))
+    bf = lambda *ts: tuple(t.to(torch.bfloat16) for t in ts)
+    for args in (bf(q, k, v, b), bf(q, k, v) + (b,)):
+        with pytest.raises(ValueError, match="CUDA device"):
+            _check(*args)
+    for args in ((q, *bf(k), v, b), (*bf(q, k), v, b), (q, k, v, *bf(b)),
+                 bf(q, k, v) + (b.half(),),
+                 tuple(t.half() for t in (q, k, v, b))):
+        with pytest.raises(ValueError, match="dtype"):
+            _check(*args)
+
+
 def test_wrapper_counts_no_launch_on_cpu():
     q, k, v, b = (torch.from_numpy(t) for t in _inputs(8, seed=5))
     before = tri_attn_core.launches

@@ -38,7 +38,7 @@ scaled_dot_product_attention in float32 with the pair bias as its mask.
 Precision follows the e2e predictor: with bf16 weights (convert.build_af2)
 the products run in bf16 with float32 accumulation and biases, norms,
 softmaxes and the residual streams stay float32, and the kernel's core is
-float32 (q, k, v and the pair bias cast up).
+float32 on the bf16 q, k, v and pair bias (its bf16-operand path).
 
 Departures, for the port's use: no templates (the template-free models);
 no ensembling (num_ensemble 1, as released inference runs); no
@@ -141,22 +141,22 @@ class MSARowAttentionWithPairBias(nn.Module):
         H, D = self.heads, self.head_dim
         m = self.norm_m(m)
         q, k, v = (t.reshape(R, L, H, D)
-                   for t in torch.chunk(self.to_qkv(m).float(), 3, dim=-1))
+                   for t in torch.chunk(self.to_qkv(m), 3, dim=-1))
         # (L, L, H) as a view of a head-major product, as TriangleAttention
         w = self.to_b.weight
         zn = self.norm_z(z)
-        bias = torch.matmul(w, zn.reshape(L * L, -1).T.to(w.dtype)).float() \
+        bias = torch.matmul(w, zn.reshape(L * L, -1).T.to(w.dtype)) \
             .reshape(H, L, L)
-        if D == D_HEAD:
+        if D == D_HEAD:     # the products' dtype: float32 in the core
             before = tri_attn_core.launches
             o = tri_attn_core(q, k, v, bias.permute(1, 2, 0), "row")
             n = tri_attn_core.launches - before
             AF2_STATS.launches["msa_row"] += n
             AF2_STATS.msa_row_rows += n * R
         else:
+            q, k, v = (t.float().transpose(1, 2) for t in (q, k, v))
             o = F.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                attn_mask=bias[None]).transpose(1, 2)
+                q, k, v, attn_mask=bias.float()[None]).transpose(1, 2)
         gate = torch.sigmoid(self.to_gate(m))
         return self.to_out(gate * o.reshape(R, L, H * D))
 

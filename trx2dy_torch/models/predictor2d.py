@@ -29,11 +29,12 @@ Linear and Conv2d then cast their input to the weight's dtype and add the
 float32 bias after the product, and the norms keep float32 statistics and
 return the input's dtype, as in JAX. So a projection without bias (to_q,
 to_kv, to_qkv, linear_for_pair, pair_linear) yields bfloat16. The
-triangle attention core takes float32 only: in bf16 mode its q, k, v and
-pair bias are cast to float32 first, on the card and on the CPU alike, so
-the kernel and its plain version compute one function; that core is then
-more precise than JAX's bf16 einsums. With float32 weights every
-operation is the one it was before bf16 existed.
+triangle attention core takes those bf16 q, k, v and pair bias as they
+are and computes in float32 on their values, on the card (the kernel's
+bf16-operand path) and on the CPU (its plain version casts them first)
+alike, so the kernel and its plain version compute one function; that
+core is then more precise than JAX's bf16 einsums. With float32 weights
+every operation is the one it was before bf16 existed.
 
 Training (models/train.py) passes three switches to `forward`, as JAX's
 predictor2d_apply takes them:
@@ -283,13 +284,14 @@ class TriangleAttention(nn.Module):
     def forward(self, z, use_flash: bool = True):
         z = self.norm(z)
         L = z.shape[0]
-        # the core runs in float32 (a no-op cast with float32 weights)
+        # q, k, v and the bias in the products' dtype: the core computes
+        # in float32 either way (with bf16 weights, on the bf16 values)
         q, k, v = (t.reshape(L, L, TRI_HEADS, TRI_DIM_HEAD)
-                   for t in torch.chunk(self.to_qkv(z).float(), 3, dim=-1))
+                   for t in torch.chunk(self.to_qkv(z), 3, dim=-1))
         # (L, L, H) as a view of a head-major (H, L, L) product, so that
         # the kernel reads each head's bias tile contiguously
         w = self.linear_for_pair.weight
-        bias = torch.matmul(w, z.reshape(L * L, -1).T.to(w.dtype)).float() \
+        bias = torch.matmul(w, z.reshape(L * L, -1).T.to(w.dtype)) \
             .reshape(-1, L, L).permute(1, 2, 0)
         gate = self.to_gate(z)
         core = tri_attn_core if use_flash else tri_attn_core_plain
